@@ -3,7 +3,9 @@ builders of tnax_torch.engine) against tnax, in float64 on the CPU.
 
 QR and SVD leave the basis of degenerate and exactly-zero channels free,
 so the comparisons are gauge-invariant: the dense state of each MPS
-(left and right boundary index 0, times 2**lognorm) and overlaps.
+(left and right boundary index 0, times 2**lognorm) and overlaps. The
+port's functions take a leading instance axis; one tnax instance is a
+batch of one.
 """
 
 import numpy as np
@@ -46,7 +48,7 @@ def _mps_and_row(seed, L=3, D=8, d=16, lh=16, canonize="right"):
 
 
 def _assert_same_state(got, ref, rtol=1e-10):
-    a = dense(got.A.numpy(), got.lognorm.numpy())
+    a = dense(got.A[0].numpy(), got.lognorm[0].numpy())
     b = dense(ref.A, ref.lognorm)
     assert np.linalg.norm(a - b) <= rtol * np.linalg.norm(b)
 
@@ -59,8 +61,9 @@ def test_zipup_apply_matches_tnax(rsvd, conj):
                                       tol=1e-17, rsvd=rsvd)
     # the tensor form of the sketch: L=3 sites, n = D*lh = 128, k = 40
     got, disc = bmps.zipup_apply(
-        interop.mps(m.A, m.lognorm, "cpu", torch.float64), torch.as_tensor(W),
-        8, conj=conj, tol=1e-17, rsvd=rsvd, omega=tnax_omega(3, 128, 40))
+        interop.mps(m.A, m.lognorm, "cpu", torch.float64),
+        torch.as_tensor(W)[None], 8, conj=conj, tol=1e-17, rsvd=rsvd,
+        omega=tnax_omega(3, 128, 40))
     _assert_same_state(got, ref)
     assert float(disc) == pytest.approx(float(disc_ref), rel=1e-8)
 
@@ -71,10 +74,10 @@ def test_compress_apply_matches_tnax(rsvd):
     ref, ov_ref, disc_ref = jbmps.compress_apply(
         m, jnp.asarray(W), 4, conj=True, tolS=1e-16, tolV=1e-10,
         max_sweeps=4, rsvd=rsvd)
-    got, ov, disc = bmps.compress_apply(
-        interop.mps(m.A, m.lognorm, "cpu", torch.float64), torch.as_tensor(W),
-        4, conj=True, tolS=1e-16, tolV=1e-10, max_sweeps=4, rsvd=rsvd,
-        omega=tnax_omega)
+    got, ov, disc, _ = bmps.compress_apply(
+        interop.mps(m.A, m.lognorm, "cpu", torch.float64),
+        torch.as_tensor(W)[None], 4, conj=True, tolS=1e-16, tolV=1e-10,
+        max_sweeps=4, rsvd=rsvd, omega=tnax_omega)
     _assert_same_state(got, ref)
     assert float(ov) == pytest.approx(float(ov_ref), rel=1e-10)
     assert float(disc) == pytest.approx(float(disc_ref), rel=1e-8)
@@ -118,8 +121,8 @@ def test_build_rhoT_boundary_vectors_match_tnax():
     kw = dict(Dmax=4, tolS=1e-16, tolV=1e-10, max_sweeps=4)
     rhoT, lns, ovs, _ = jengine.build_rhoT(Wt, graduate=False, rsvd=False,
                                            **kw)
-    rhoT_t, lns_t, ovs_t, _ = engine.build_rhoT(torch.as_tensor(
-        np.array(Wt)), rsvd=False, **kw)
+    rhoT_t, lns_t, ovs_t, _ = (x[0] for x in engine.build_rhoT(
+        torch.as_tensor(np.array(Wt))[None], rsvd=False, **kw))
     for ny in range(g.Ny + 1):
         a = dense(rhoT_t[ny].numpy(), lns_t[ny].numpy())
         b = dense(rhoT[ny], lns[ny])
@@ -131,8 +134,8 @@ def test_build_rho_both_matches_tnax():
     _, g, _, Wt = _chimera_rows(6)
     kw = dict(Dmax=4, tolS=1e-16, tolV=1e-10, max_sweeps=4)
     rhoT, rhoB = jengine.build_rho_both(Wt, graduate=False, rsvd=False, **kw)
-    rhoT_t, rhoB_t = engine.build_rho_both(torch.as_tensor(np.array(Wt)),
-                                           rsvd=False, **kw)
+    rhoT_t, rhoB_t = (x[0] for x in engine.build_rho_both(
+        torch.as_tensor(np.array(Wt))[None], rsvd=False, **kw))
     # build_rho_both drops the lognorms; compare directions of the states
     for ours, ref in ((rhoT_t, rhoT), (rhoB_t, rhoB)):
         for ny in range(g.Ny + 1):

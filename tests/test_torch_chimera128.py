@@ -33,7 +33,8 @@ def _recheck(J, ins, states):
 def test_problem_tables_match_tnax():
     J = _J()
     assert J == tnax.round_Jij(tnax.Jij_f2p(tnax.load_Jij(INSTANCE)), 1 / 75)
-    ins = tt.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J, beta=3)
+    ins = tt.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J, beta=3,
+                    device="cpu")
     ref = tnax.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J, beta=3)
     g, gj = engine.pad_grid(ins.problem), jengine.pad_grid(ref.problem)
     assert (g.Np, g.lh, g.lv) == (gj.Np, gj.lh, gj.lv) == (256, 16, 16)
@@ -52,7 +53,8 @@ def test_flagship_matches_committed_oracle():
     with open(os.path.join(DATA, "chimera128_synth_s0_oracle.json")) as f:
         oracle = json.load(f)
     J = _J()
-    ins = tt.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J, beta=3)
+    ins = tt.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J, beta=3,
+                    device="cpu")
     res = tt.parallel.flagship_search_gs(
         ins, M=oracle["M"], relative_P_cutoff=oracle["relative_P_cutoff"],
         Dmax=oracle["Dmax"], zipup_rsvd=oracle["zipup_rsvd"],
@@ -70,7 +72,8 @@ def test_flagship_matches_tnax_smaller_beam(monkeypatch):
     kw = dict(M=128, relative_P_cutoff=1e-8, Dmax=16, zipup_rsvd=True)
     ref_ins = tnax.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J, beta=3)
     want = jpar.flagship_search_gs(ref_ins, **kw)
-    ins = tt.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J, beta=3)
+    ins = tt.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J, beta=3,
+                    device="cpu")
     got = tt.parallel.flagship_search_gs(ins, omega=tnax_omega, **kw)
     assert np.array_equal(got["states"], np.asarray(want["states"]))
     assert got["degeneracy"] == want["degeneracy"]

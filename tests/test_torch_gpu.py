@@ -1,5 +1,6 @@
 """The port's kernels against their plain PyTorch versions on a CUDA
-card, at the flagship shapes, in float32 and float64. Marked ``gpu`` and
+card, at the flagship shapes and batched at the fleet's, in float32 and
+float64. Marked ``gpu`` and
 skipped without a card. This file imports neither jax nor tnax, so it
 runs where only the port is installed:
 
@@ -111,17 +112,49 @@ def test_merge_kernel_refuses_oversized_sets(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_marginal_kernel_matches_plain(cuda, dtype):
-    rng = np.random.default_rng(2)
-    lB, drindex, AT, RL, RRsel, lidx, uidx, nvalid = _marginal_inputs(
-        rng, M=1024, Np=256, lh=16, lv=16, D=32, nvalid=200)
-    T2 = engine._marginal_T2(*(_t(a).to(cuda, dtype)
-                               for a in (AT, RL, RRsel)))
-    args = (T2, _t(lB).to(cuda, dtype), _t(drindex).to(cuda),
-            _t(lidx).to(cuda), _t(uidx).to(cuda), nvalid,
-            _t(-np.abs(rng.standard_normal(1024)) * 40).to(cuda, dtype),
-            _t(rng.random(1024) < 0.7).to(cuda))
+def test_merge_kernel_batched_matches_plain(cuda, dtype):
+    """The fleet's merge: 8 instances of C = 2048 in one launch, each row
+    equal to its own plain run."""
+    rng = np.random.default_rng(1)
+    sets = [_candidates(rng, 1024, 2048, 8, 4) for _ in range(8)]
+    key1 = np.stack([_key1(v, ok) for v, _, _, ok, _ in sets])
+    args = [_t(key1).to(cuda)] + [_t(np.stack(x)).to(cuda)
+                                  for x in list(zip(*sets))[1:]]
+    args[2] = args[2].to(dtype)
+    before = kernels.merge_segments.launches
+    got = kernels.merge_segments(*args, 1e-12)
+    assert kernels.merge_segments.launches == before + 1
+    for b in range(8):
+        want = kernels.merge_segments_plain(*(a[b] for a in args), 1e-12)
+        for i in (0, 1, 2, 3, 5):
+            assert torch.equal(got[i][b], want[i]), (b, i)
+        torch.testing.assert_close(got[4][b], want[4], rtol=_rtol(dtype),
+                                   atol=_rtol(dtype))
+
+
+def _batched_marginal_args(rng, cuda, dtype, nvalids, M=1024):
+    ins = [_marginal_inputs(rng, M=M, Np=256, lh=16, lv=16, D=32,
+                            nvalid=nv) for nv in nvalids]
+    B = len(nvalids)
+    lB, drindex, AT, RL, RRsel, lidx, uidx = (
+        _t(np.stack(x)).to(cuda) for x in list(zip(*ins))[:7])
+    T2 = engine._marginal_T2(*(x.to(dtype) for x in (AT, RL, RRsel)))
+    return (T2, lB.to(dtype), drindex, lidx, uidx,
+            torch.tensor(nvalids, device=cuda),
+            _t(-np.abs(rng.standard_normal((B, M))) * 40).to(cuda, dtype),
+            _t(rng.random((B, M)) < 0.7).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nvalids", [[200], [200, 256, 97, 1, 256, 180, 64,
+                                           255]], ids=["B1", "B8"])
+def test_marginal_kernel_matches_plain(cuda, dtype, nvalids):
+    args = _batched_marginal_args(np.random.default_rng(2), cuda, dtype,
+                                  nvalids)
+    before = kernels.marginal_epilogue.launches
     got = kernels.marginal_epilogue(*args)
+    assert kernels.marginal_epilogue.launches == before + 1
     want = kernels.marginal_epilogue_plain(*args)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=_rtol(dtype), atol=_rtol(dtype))
@@ -141,22 +174,28 @@ def test_search_loop_never_syncs(cuda):
     ins = tt.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J, beta=3,
                     device="cuda", dtype=torch.float32)
     g = engine.pad_grid(ins.problem)
-    X = {k: _t(v).to(cuda, torch.float32)
+
+    def fleet(a, dtype=None):
+        # two copies of the instance: a batch of two
+        t = _t(np.stack([a, a])).to(cuda)
+        return t if dtype is None else t.to(dtype)
+
+    X = {k: fleet(v, torch.float32)
          for k, v in engine.identity_gauges(g).items()}
-    f32 = [_t(a).to(cuda, torch.float32) for a in (g.Es, g.Esl, g.Esu)]
-    dmap, rmap = _t(g.dmap).to(cuda), _t(g.rmap).to(cuda)
+    f32 = [fleet(a, torch.float32) for a in (g.Es, g.Esl, g.Esu)]
+    dmap, rmap = fleet(g.dmap), fleet(g.rmap)
     lB, Wt = engine.peps_rows(*f32, dmap, rmap, X["Xl"], X["Xr"], X["Xu"],
                               X["Xd"], 3.0, lh=g.lh, lv=g.lv)
     M, D = 256, 16
     rhoT = engine.build_rhoT(Wt, Dmax=D, tolS=1e-16, tolV=1e-10,
                              max_sweeps=2)[0]
-    raw = [_t(a).to(cuda, torch.float64)
+    raw = [fleet(a, torch.float64)
            for a in parallel._padded_energy_rows_problem(ins.problem)]
     cols = (np.arange(4)[:, None] * 4 + np.arange(4)[None, :]).tolist()
     grid_in = dict(lB=lB, drindex=dmap.long() * g.lh + rmap.long(),
                    Es=raw[0], Esl=raw[1], Esu=raw[2], dmap=dmap, rmap=rmap,
-                   nvalid=g.nstates.tolist(), cols=cols)
-    beam0 = parallel._initial_beam(M, D, 4, 4, torch.float32, cuda)
+                   nvalid=fleet(g.nstates), cols=cols)
+    beam0 = parallel._initial_beam(2, M, D, 4, 4, torch.float32, cuda)
     kw = dict(M=M, Nx=4, bits=4, min_dEng=1e-12,
               log2_cutoff=float(np.log2(1e-8)), cand=8 * M)
     parallel.full_search_scan(beam0, grid_in, rhoT, Wt, **kw)  # warm-up

@@ -70,11 +70,13 @@ def test_merge_candidates_plain_matches_tnax(seed, with_key1):
         jnp.asarray(vind), jnp.asarray(Eng), jnp.asarray(prob),
         jnp.asarray(valid), 1e-12, bits, M, deg=jnp.asarray(limbs),
         key1=None if key1 is None else jnp.asarray(key1))
+    # the port merges a batch of instances; here a batch of one
     got = parallel.merge_candidates(
-        _t(vind), _t(Eng), _t(prob), _t(valid), 1e-12, bits, M,
-        deg=_t(deg),
-        key1=None if key1 is None else _t(key1))
-    slot, rep, prob_out, Eng_out, out_valid, disc, deg_out = got
+        _t(vind)[None], _t(Eng)[None], _t(prob)[None], _t(valid)[None],
+        1e-12, bits, M, deg=_t(deg)[None],
+        key1=None if key1 is None else _t(key1)[None])
+    slot, rep, prob_out, Eng_out, out_valid, disc, deg_out = (
+        x[0] for x in got)
     assert np.array_equal(slot.numpy(), np.asarray(ref[0]))
     assert np.array_equal(rep.numpy(), np.asarray(ref[1]))
     assert np.array_equal(out_valid.numpy(), np.asarray(ref[4]))
@@ -105,7 +107,8 @@ def test_pack_keys_and_lexsort_match_tnax():
 def test_marginal_step_plain_matches_tnax():
     args = _marginal_inputs(np.random.default_rng(0))
     Pn_j, mPn_j = jengine.marginal_step(*(jnp.asarray(a) for a in args))
-    Pn, mPn = engine.marginal_step(*(_t(a) for a in args[:-1]), args[-1])
+    Pn, mPn = (x[0] for x in engine.marginal_step(
+        *(_t(a)[None] for a in args[:-1]), torch.tensor([args[-1]])))
     np.testing.assert_allclose(Pn.numpy(), np.asarray(Pn_j), rtol=1e-12,
                                atol=1e-15)
     np.testing.assert_allclose(mPn.numpy(), np.asarray(mPn_j), rtol=1e-12,
@@ -125,8 +128,9 @@ def test_marginal_epilogue_plain_matches_tnax_probf():
                      NEG)
     want = np.asarray(jnp.where(jnp.asarray(valid)[:, None],
                                 jnp.asarray(prob)[:, None] + logP, NEG))
-    probf, mPn = engine.marginal_probf(*(_t(a) for a in args[:-1]),
-                                       args[-1], _t(prob), _t(valid))
+    probf, mPn = (x[0] for x in engine.marginal_probf(
+        *(_t(a)[None] for a in args[:-1]), torch.tensor([args[-1]]),
+        _t(prob)[None], _t(valid)[None]))
     np.testing.assert_allclose(probf.numpy(), want, rtol=1e-12)
     np.testing.assert_allclose(mPn.numpy(), np.asarray(mPn_j), rtol=1e-12,
                                atol=1e-15)

@@ -34,15 +34,16 @@ def test_ladder_program_gauges_match_tnax(betas, monkeypatch):
                                           X0.items()},
         jnp.asarray(betas), jnp.asarray(nd), jnp.asarray(32.0),
         graduate=False, **kw)
+    # the port's ladder takes a leading instance axis: a batch of one
     X_t, ov_t = precondition._ladder_program(
-        *(torch.as_tensor(a) for a in tabs),
-        interop.gauges(X0, "cpu", torch.float64), betas, torch.as_tensor(nd),
-        32.0, omega=tnax_omega, **kw)
+        *(torch.as_tensor(a)[None] for a in tabs),
+        interop.gauges(X0, "cpu", torch.float64), betas,
+        torch.as_tensor(nd)[None], 32.0, omega=tnax_omega, **kw)
     for k in ("Xl", "Xr", "Xu", "Xd"):
-        np.testing.assert_allclose(X_t[k].numpy(), np.asarray(X_j[k]),
+        np.testing.assert_allclose(X_t[k][0].numpy(), np.asarray(X_j[k]),
                                    rtol=1e-12)
-    assert not np.array_equal(X_t["Xd"].numpy(), X0["Xd"])
-    np.testing.assert_allclose(ov_t.numpy(), np.asarray(ov_j), rtol=1e-8)
+    assert not np.array_equal(X_t["Xd"][0].numpy(), X0["Xd"])
+    np.testing.assert_allclose(ov_t[0].numpy(), np.asarray(ov_j), rtol=1e-8)
 
 
 def test_balance_one_interface_matches_tnax():

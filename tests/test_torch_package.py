@@ -1,6 +1,6 @@
-"""Packaging rules of the port: it never imports jax or tnax, its kernel
-wrappers dispatch by device, and chip_smoke.py refuses to run without a
-CUDA card or without the package beside it."""
+"""Packaging rules of the port: it and its chip scripts never import jax
+or tnax, its kernel wrappers dispatch by device, and chip_smoke.py
+refuses to run without a CUDA card or without the package beside it."""
 
 import os
 import re
@@ -26,6 +26,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "tools", "profile_port.py")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),

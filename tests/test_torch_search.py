@@ -66,26 +66,28 @@ def test_row_step_from_tnax_beam_matches_tnax():
     beam1, _ = _tnax_row(beam0, rows, rhoT, Wt, 0, g, bits)
     want, aux_want = _tnax_row(beam1, rows, rhoT, Wt, 1, g, bits)
 
-    # the port takes over tnax's beam after row 0 and runs row 1
+    # the port takes over tnax's beam after row 0 and runs row 1, as a
+    # batch of one instance
     beam = interop.beam({k: np.asarray(v) for k, v in beam1.items()}, "cpu",
                         torch.float64)
-    beam["aidx"] = torch.arange(M)
-    beam["RL"] = torch.zeros((M, D), dtype=torch.float64)
-    beam["RL"][:, 0] = 1.0
-    rhoT_t = torch.as_tensor(np.array(rhoT))
-    Wt_t = torch.as_tensor(np.array(Wt))
-    RRs = engine.row_right_envs(rhoT_t[2], Wt_t[1], beam["vind"][:, 1:])
+    beam["aidx"] = torch.arange(M)[None]
+    beam["RL"] = torch.zeros((1, M, D), dtype=torch.float64)
+    beam["RL"][:, :, 0] = 1.0
+    rhoT_t = torch.as_tensor(np.array(rhoT))[None]
+    Wt_t = torch.as_tensor(np.array(Wt))[None]
+    RRs = engine.row_right_envs(rhoT_t[:, 2], Wt_t[:, 1],
+                                beam["vind"][:, :, 1:])
     RRs_j = jengine.row_right_envs(rhoT[2], Wt[1], beam1["vind"][:, 1:])
-    np.testing.assert_allclose(RRs.numpy(), np.asarray(RRs_j), rtol=1e-10,
+    np.testing.assert_allclose(RRs[0].numpy(), np.asarray(RRs_j), rtol=1e-10,
                                atol=1e-14)
-    row = {k: torch.as_tensor(np.array(v[1])) for k, v in rows.items()
-           if k not in ("nvalid", "cols")}
-    row.update(nvalid=rows["nvalid"][1].tolist(),
-               cols=rows["cols"][1].tolist(), AT=rhoT_t[2], RRs=RRs)
+    row = {k: torch.as_tensor(np.array(v[1]))[None] for k, v in rows.items()
+           if k != "cols"}
+    row.update(cols=rows["cols"][1].tolist(), AT=rhoT_t[:, 2], RRs=RRs)
     got, aux = parallel.row_step(beam, row, M=M, Nx=g.Nx, bits=bits,
                                  min_dEng=1e-12,
                                  log2_cutoff=float(np.log2(1e-10)),
                                  cand=8 * M)
+    got = {k: v[0] for k, v in got.items()}
     for k in ("vind", "states", "valid"):
         assert np.array_equal(got[k].numpy(), np.asarray(want[k])), k
     assert np.array_equal(got["deg"].numpy(),
@@ -121,7 +123,8 @@ def test_flagship_matches_tnax(rsvd, monkeypatch):
     ins_j = tnax.Solver(mode="Ising", Nx=Nx, Ny=Ny, Nc=Nc, beta=2, J=J)
     want = jpar.flagship_search_gs(ins_j, M=M, relative_P_cutoff=1e-10,
                                    Dmax=8, zipup_rsvd=rsvd)
-    ins = tt.Solver(mode="Ising", Nx=Nx, Ny=Ny, Nc=Nc, beta=2, J=J)
+    ins = tt.Solver(mode="Ising", Nx=Nx, Ny=Ny, Nc=Nc, beta=2, J=J,
+                    device="cpu")
     got = tt.parallel.flagship_search_gs(ins, M=M, relative_P_cutoff=1e-10,
                                          Dmax=8, zipup_rsvd=rsvd,
                                          omega=tnax_omega)

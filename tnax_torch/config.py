@@ -6,8 +6,11 @@ card uses for f32 matmuls and convolutions when allowed. Conditional
 probabilities are ratios spanning many orders of magnitude, so both TF32
 switches stay off and the f32 matmul precision stays "highest".
 
-The dtype is a parameter: float64 on the CPU (parity with tnax in f64),
-float32 by default on CUDA, float64 on CUDA as a measured alternative.
+Entry points run on the card unless the caller asks for the CPU: no
+device means CUDA, and without a CUDA card that is an error, not a quiet
+move to the CPU. The dtype is a parameter: float64 on the CPU (parity
+with tnax in f64), float32 by default on CUDA, float64 on CUDA as a
+measured alternative.
 """
 
 from __future__ import annotations
@@ -23,10 +26,14 @@ def ensure_precision() -> None:
 
 
 def resolve(device=None, dtype=None):
-    """(torch.device, dtype) with the port's defaults: CUDA when asked
-    for, float64 on the CPU and float32 on CUDA unless given."""
+    """(torch.device, dtype) with the port's defaults: CUDA unless a
+    device is given, float64 on the CPU and float32 on CUDA unless a dtype
+    is given. Raises RuntimeError for CUDA on a machine without it."""
     ensure_precision()
-    device = torch.device("cpu" if device is None else device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: the port runs on CUDA by default; "
+                           "pass device='cpu' to run on the CPU")
     if dtype is None:
         dtype = torch.float32 if device.type == "cuda" else torch.float64
     if dtype not in (torch.float32, torch.float64):

@@ -1,7 +1,9 @@
 """Contraction engine: padded grid, PEPS row factory, boundary-MPS stack,
 row environments and batched conditional marginals (torch).
 
-Counterpart of ``tnax/engine.py``. A site's 5-leg PEPS tensor
+Counterpart of ``tnax/engine.py``. Every device function takes a leading
+instance axis B (tnax vmaps over fleet instances); a single search is the
+case B = 1. A site's 5-leg PEPS tensor
 W[s, l, d, r, u] is never materialized; it factorizes exactly as
 
     W[s, l, d, r, u] = B[s, l, u] * delta(d == dmap[s]) * delta(r == rmap[s])
@@ -121,98 +123,113 @@ def peps_rows(Es, Esl, Esu, dmap, rmap, Xl, Xr, Xu, Xd, beta, *, lh, lv):
 
 
 def build_rhoT(Wt, *, Dmax, tolS, tolV, max_sweeps, rsvd=True, omega=None):
-    """Boundary-MPS stack from the bottom edge upward.
+    """Boundary-MPS stacks from the bottom edge upward.
 
-    Wt: (Ny, Nx, lh, lv, lh, lv) traced row tensors. Returns
-    (rhoT, lognorms, overlaps, discarded); rhoT[ny] (ny=0..Ny) contracts
-    rows ny..Ny-1 as an MPS over columns whose physical legs are the
-    up-legs of row ny; rhoT[Ny] is the trivial boundary.
+    Wt: (B, Ny, Nx, lh, lv, lh, lv) traced row tensors of B instances.
+    Returns (rhoT, lognorms, overlaps, discarded) with leading axis B;
+    rhoT[b, ny] (ny=0..Ny) contracts rows ny..Ny-1 as an MPS over columns
+    whose physical legs are the up-legs of row ny; rhoT[b, Ny] is the
+    trivial boundary.
     """
-    Ny, Nx, lh, lv = Wt.shape[:4]
-    mps = mps0 = bmps.trivial_mps(Nx, Dmax, lv, Wt.dtype, Wt.device)
+    B, Ny, Nx, lh, lv = Wt.shape[:5]
+    mps = mps0 = bmps.trivial_mps(B, Nx, Dmax, lv, Wt.dtype, Wt.device)
     As, lns, ovs, dss = [], [], [], []
     for ny in range(Ny - 1, -1, -1):
-        mps, overlap, disc = bmps.compress_apply(
-            mps, Wt[ny], Dmax, conj=True, tolS=tolS, tolV=tolV,
+        mps, overlap, disc, _ = bmps.compress_apply(
+            mps, Wt[:, ny], Dmax, conj=True, tolS=tolS, tolV=tolV,
             max_sweeps=max_sweeps, rsvd=rsvd, omega=omega)
         As.append(mps.A)
         lns.append(mps.lognorm)
         ovs.append(overlap)
         dss.append(disc)
-    rhoT = torch.stack(As[::-1] + [mps0.A])
-    lognorms = torch.stack(lns[::-1] + [torch.zeros_like(mps0.lognorm)])
-    return rhoT, lognorms, torch.stack(ovs[::-1]), torch.stack(dss[::-1])
+    rhoT = torch.stack(As[::-1] + [mps0.A], dim=1)
+    lognorms = torch.stack(lns[::-1] + [torch.zeros_like(mps0.lognorm)],
+                           dim=1)
+    return rhoT, lognorms, torch.stack(ovs[::-1], 1), torch.stack(dss[::-1], 1)
 
 
 def build_rho_both(Wt, *, Dmax, tolS, tolV, max_sweeps, rsvd=True,
                    omega=None):
-    """Both boundary stacks (rhoT, rhoB).
+    """Both boundary stacks (rhoT, rhoB) of B instances in one batched
+    build of 2B lanes.
 
     A bottom-boundary row absorption is a top-boundary absorption of the
     up/down-swapped tensor, and the forward build is the reverse build
     over the row-flipped stack, so rhoB is :func:`build_rhoT` of the
-    mirrored rows. tnax runs the two lanes batched; here they run one
-    after the other (each lane is bit-identical to the unbatched build
-    in tnax too).
+    mirrored rows; tnax batches the two lanes the same way
+    (tnax/engine.py:243-259). Each lane stops its own sweeps, so each is
+    the unbatched build.
     """
-    WtB = torch.flip(Wt.permute(0, 1, 2, 5, 4, 3), dims=(0,))
-    kw = dict(Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
-              rsvd=rsvd, omega=omega)
-    rhoT = build_rhoT(Wt, **kw)[0]
-    rhoBm = build_rhoT(WtB, **kw)[0]
-    rhoB = torch.cat([rhoBm[-1:], torch.flip(rhoBm[:-1], dims=(0,))])
+    B = Wt.shape[0]
+    WtB = torch.flip(Wt.permute(0, 1, 2, 3, 6, 5, 4), dims=(1,))
+    rho = build_rhoT(torch.cat([Wt, WtB]), Dmax=Dmax, tolS=tolS, tolV=tolV,
+                     max_sweeps=max_sweeps, rsvd=rsvd, omega=omega)[0]
+    rhoT, rhoBm = rho[:B], rho[B:]
+    rhoB = torch.cat([rhoBm[:, -1:], torch.flip(rhoBm[:, :-1], dims=(1,))],
+                     dim=1)
     return rhoT, rhoB
+
+
+def _take(x, idx):
+    """Per-instance gather of rows: x (B, N, ...), idx (B, K) -> (B, K, ...)
+    with out[b, k] = x[b, idx[b, k]]."""
+    b = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[b, idx]
 
 
 def _rr_absorb_twogemm(AT, Wt, u, rr):
     """One right-env absorption: contract rr with AT over the bond as one
     GEMM, contract that with the full traced tensor for every up-leg
-    value q as a second GEMM, then select q = u_m per branch."""
-    T = torch.einsum("mbr,adb->mrad", rr, AT)          # (M, lh, D, lv)
-    new_all = torch.einsum("mrad,ldrq->malq", T, Wt)   # (M, D, lh, q)
-    idx = u.long()[:, None, None, None].expand(new_all.shape[:3] + (1,))
-    return torch.gather(new_all, 3, idx)[..., 0]
+    value q as a second GEMM, then select q = u_m per branch. AT
+    (B, D, lv, D), Wt (B, lh, lv, lh, lv), u (B, M), rr (B, M, D, lh)."""
+    T = torch.einsum("zmbr,zadb->zmrad", rr, AT)          # (B, M, lh, D, lv)
+    new_all = torch.einsum("zmrad,zldrq->zmalq", T, Wt)   # (B, M, D, lh, q)
+    idx = u.long()[:, :, None, None, None].expand(new_all.shape[:4] + (1,))
+    return torch.gather(new_all, 4, idx)[..., 0]
 
 
 def row_right_envs(AT_row, Wt_row, uidx):
     """Right environments of the active row for every branch.
 
-    AT_row (Nx, D, lv, D) boundary MPS below the row; Wt_row
-    (Nx, lh, lv, lh, lv) traced tensors of the row; uidx (M, Nx) up-leg
-    indices per branch per site. Returns RRs (Nx, M, D, lh): RRs[nx, m]
-    is the environment of sites nx+1..Nx-1 (trivial at nx = Nx-1), each
-    rescaled to max |entry| 1.
+    AT_row (B, Nx, D, lv, D) boundary MPS below the row; Wt_row
+    (B, Nx, lh, lv, lh, lv) traced tensors of the row; uidx (B, M, Nx)
+    up-leg indices per branch per site. Returns RRs (B, Nx, M, D, lh):
+    RRs[b, nx, m] is the environment of sites nx+1..Nx-1 (trivial at
+    nx = Nx-1), each rescaled to max |entry| 1.
     """
-    Nx, D, lv, _ = AT_row.shape
-    lh = Wt_row.shape[1]
-    M = uidx.shape[0]
-    rr = torch.zeros((M, D, lh), dtype=AT_row.dtype, device=AT_row.device)
-    rr[:, 0, 0] = 1.0
+    B, Nx, D, lv, _ = AT_row.shape
+    lh = Wt_row.shape[2]
+    M = uidx.shape[1]
+    rr = torch.zeros((B, M, D, lh), dtype=AT_row.dtype, device=AT_row.device)
+    rr[:, :, 0, 0] = 1.0
     RRs = [rr] * Nx
     for s in range(Nx - 1, 0, -1):
-        new = _rr_absorb_twogemm(AT_row[s], Wt_row[s], uidx[:, s], rr)
-        scale = new.abs().amax(dim=(1, 2), keepdim=True)
+        new = _rr_absorb_twogemm(AT_row[:, s], Wt_row[:, s], uidx[:, :, s],
+                                 rr)
+        scale = new.abs().amax(dim=(2, 3), keepdim=True)
         rr = new / torch.where(scale > 0, scale, 1.0)
         RRs[s - 1] = rr
-    return torch.stack(RRs)
+    return torch.stack(RRs, dim=1)
 
 
 def _marginal_T2(AT, RL, RRsel):
-    """The two GEMMs of a marginal: (M, lv*lh) per-branch contractions."""
-    M, D = RL.shape
-    lv = AT.shape[1]
-    T1 = (RL @ AT.reshape(D, lv * D)).reshape(M, lv, D)
-    return torch.bmm(T1, RRsel).reshape(M, -1)          # (M, lv*lh)
+    """The two GEMMs of a marginal: (B, M, lv*lh) per-branch products.
+    AT (B, D, lv, D), RL (B, M, D), RRsel (B, M, D, lh)."""
+    B, M, D = RL.shape
+    lv, lh = AT.shape[2], RRsel.shape[3]
+    T1 = torch.bmm(RL, AT.reshape(B, D, lv * D)).reshape(B * M, lv, D)
+    return torch.bmm(T1, RRsel.reshape(B * M, D, lh)).reshape(B, M, lv * lh)
 
 
 def marginal_step(lB, drindex, AT, RL, RRsel, lidx, uidx, nvalid):
-    """Normalized conditional marginals of one site for all branches.
+    """Normalized conditional marginals of one site for all branches of
+    B instances.
 
-    lB (Np, lh, lv), drindex (Np,), AT (D, lv, D), RL (M, D),
-    RRsel (M, D, lh), lidx/uidx (M,), nvalid (scalar). Returns (Pn, mPn):
-    probabilities (M, Np) normalized over the valid states, and the
-    per-branch negativeness red flag. Plain torch throughout; the search
-    path uses :func:`marginal_probf`, whose epilogue is a kernel.
+    lB (B, Np, lh, lv), drindex (B, Np), AT (B, D, lv, D), RL (B, M, D),
+    RRsel (B, M, D, lh), lidx/uidx (B, M), nvalid (B,). Returns (Pn, mPn):
+    probabilities (B, M, Np) normalized over the valid states, and the
+    per-branch negativeness red flag (B, M). Plain torch throughout; the
+    search path uses :func:`marginal_probf`, whose epilogue is a kernel.
     """
     T2 = _marginal_T2(AT, RL, RRsel)
     return _marginal.marginal_pn_plain(T2, lB, drindex, lidx, uidx, nvalid)
@@ -221,9 +238,9 @@ def marginal_step(lB, drindex, AT, RL, RRsel, lidx, uidx, nvalid):
 def marginal_probf(lB, drindex, AT, RL, RRsel, lidx, uidx, nvalid, prob,
                    valid):
     """:func:`marginal_step` followed by the search's branch
-    log2-probabilities: returns probf (M, Np) = prob + log2(Pn), NEG for
-    invalid branches or zero marginals, and mPn (M,). The elementwise
-    epilogue after the GEMMs is kernel K3 on CUDA."""
+    log2-probabilities: returns probf (B, M, Np) = prob + log2(Pn), NEG
+    for invalid branches or zero marginals, and mPn (B, M). The
+    elementwise epilogue after the GEMMs is kernel K3 on CUDA."""
     T2 = _marginal_T2(AT, RL, RRsel)
     return _marginal.marginal_epilogue(T2, lB, drindex, lidx, uidx, nvalid,
                                        prob, valid)
@@ -231,9 +248,9 @@ def marginal_probf(lB, drindex, AT, RL, RRsel, lidx, uidx, nvalid, prob,
 
 def rl_update(RL, AT, didx):
     """Absorb the active site into each branch's left environment:
-    RL' = RL @ AT[:, d_m, :] with max-abs rescale. RL (M, D),
-    AT (D, lv, D), didx (M,)."""
-    ATd = AT.permute(1, 0, 2)[didx.long()]          # (M, D, D)
-    new = torch.bmm(RL[:, None, :], ATd)[:, 0]
-    scale = new.abs().amax(dim=1, keepdim=True)
+    RL' = RL @ AT[:, d_m, :] with max-abs rescale. RL (B, M, D),
+    AT (B, D, lv, D), didx (B, M)."""
+    ATd = _take(AT.permute(0, 2, 1, 3), didx.long())      # (B, M, D, D)
+    new = (RL[:, :, None, :] @ ATd)[:, :, 0]
+    scale = new.abs().amax(dim=2, keepdim=True)
     return new / torch.where(scale > 0, scale, 1.0)

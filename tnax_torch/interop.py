@@ -1,5 +1,9 @@
 """Carry state across from tnax: its arrays as NumPy in, the port's
-tensors out. Used to start both packages from the same state."""
+tensors out. Used to start both packages from the same state.
+
+The port's tensors carry a leading instance axis. Each function takes
+the arrays of one tnax instance, which become a batch of one, or tnax's
+stacked fleet arrays (its vmapped outputs), which keep their axis."""
 
 from __future__ import annotations
 
@@ -16,14 +20,24 @@ def _t(a, device, dtype=None):
     return t if dtype is None else t.to(dtype)
 
 
+def _batch(t, single_ndim):
+    """Add the instance axis to one instance's tensor."""
+    return t[None] if t.dim() == single_ndim else t
+
+
 def gauges(X, device, dtype):
-    """tnax gauges dict (Xl, Xr, Xu, Xd) -> tensors."""
-    return {k: _t(X[k], device, dtype) for k in ("Xl", "Xr", "Xu", "Xd")}
+    """tnax gauges dict (Xl, Xr, Xu, Xd), each (Ny, Nx, l) or stacked
+    (B, Ny, Nx, l) -> tensors (B, Ny, Nx, l)."""
+    return {k: _batch(_t(X[k], device, dtype), 3)
+            for k in ("Xl", "Xr", "Xu", "Xd")}
 
 
 def mps(A, lognorm, device, dtype):
-    """tnax boundary MPS (stacked ``A``, ``lognorm``) -> :class:`MPS`."""
-    return MPS(A=_t(A, device, dtype), lognorm=_t(lognorm, device, dtype))
+    """tnax boundary MPS (stacked ``A`` (L, D, d, D) and scalar
+    ``lognorm``, or a fleet's (B, L, D, d, D) and (B,)) -> :class:`MPS`
+    with the instance axis."""
+    return MPS(A=_batch(_t(A, device, dtype), 4),
+               lognorm=_batch(_t(lognorm, device, dtype), 0))
 
 
 def deg_decode(limbs):
@@ -37,15 +51,19 @@ def deg_decode(limbs):
 
 def beam(b, device, dtype):
     """tnax beam payload (RL, vind, states, Eng, prob, deg limbs, valid,
-    aidx) -> the port's beam, with float64 energies and int64
+    aidx) of one instance ((M, ...) arrays) or of a fleet ((B, M, ...))
+    -> the port's beam (B, M, ...), with float64 energies and int64
     degeneracies."""
+    def bt(a, dt, single_ndim):
+        return _batch(_t(a, device, dt), single_ndim)
+
     return dict(
-        RL=_t(b["RL"], device, dtype),
-        vind=_t(b["vind"], device, torch.int32),
-        states=_t(b["states"], device, torch.int32),
-        Eng=_t(b["Eng"], device, torch.float64),
-        prob=_t(b["prob"], device, dtype),
-        deg=_t(deg_decode(b["deg"]), device, torch.int64),
-        valid=_t(b["valid"], device, torch.bool),
-        aidx=_t(b["aidx"], device, torch.int64),
+        RL=bt(b["RL"], dtype, 2),
+        vind=bt(b["vind"], torch.int32, 2),
+        states=bt(b["states"], torch.int32, 2),
+        Eng=bt(b["Eng"], torch.float64, 1),
+        prob=bt(b["prob"], dtype, 1),
+        deg=bt(deg_decode(b["deg"]), torch.int64, 1),
+        valid=bt(b["valid"], torch.bool, 1),
+        aidx=bt(b["aidx"], torch.int64, 1),
     )

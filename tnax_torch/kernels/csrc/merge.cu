@@ -1,8 +1,11 @@
-// K2: beam-merge grouping and segment statistics, one thread block.
+// K2: beam-merge grouping and segment statistics, one thread block per
+// instance of a fleet (grid of B blocks, one launch per site).
 //
 // Replaces the key1 path of tnax/parallel.py `merge_candidates` (a
 // stable jnp.argsort of C int32 keys, a cumsum of key changes, and five
-// jax.ops segment reductions). For C <= 8192 candidates it
+// jax.ops segment reductions), vmapped over the fleet's instances. Block
+// b works on row b of every (B, C) input and output; for C <= 8192
+// candidates it
 //   1. sorts (key, index) pairs: the key's sign bit is flipped and the
 //      candidate index packed below it, so one ascending sort of unique
 //      64-bit words is the stable sort of the signed keys;
@@ -18,7 +21,8 @@
 //
 // What bounds it on the card: latency, not bandwidth (8192 candidates
 // are ~150 KB of input). In eager PyTorch the same work is a sort plus a
-// dozen small launches each site. Here it is one launch: the bitonic sort
+// dozen small launches each site. Here it is one launch for the whole
+// fleet, whose instances run side by side on B SMs: the bitonic sort
 // runs on 64 KB of dynamic shared memory (91 compare-exchange stages of
 // 1024 threads), the scan and the segment walk stay in the block, and a
 // segment's sums are taken in sorted order, the order the CPU reference
@@ -49,6 +53,19 @@ merge_kernel(const int32_t* __restrict__ key1,
   extern __shared__ uint64_t s[];  // N sort words
   __shared__ int cnt[kThreads];
   const int tid = threadIdx.x;
+  // this block's instance: row blockIdx.x of every (B, C) array
+  const size_t row = static_cast<size_t>(blockIdx.x) * C;
+  key1 += row;
+  Eng += row;
+  prob += row;
+  valid += row;
+  deg += row;
+  perm += row;
+  seg += row;
+  Emin += row;
+  first_min += row;
+  gprob += row;
+  deg_seg += row;
 
   for (int i = tid; i < N; i += kThreads) {
     if (i < C) {
@@ -142,9 +159,10 @@ merge_kernel(const int32_t* __restrict__ key1,
 template <typename T>
 int launch(const void* key1, const void* Eng, const void* prob,
            const void* valid, const void* deg, double min_dEng, double neg,
-           int C, void* perm, void* seg, void* Emin, void* first_min,
+           int C, int B, void* perm, void* seg, void* Emin, void* first_min,
            void* gprob, void* deg_seg, void* stream) {
-  if (C < 1 || C > kMaxC) return static_cast<int>(cudaErrorInvalidValue);
+  if (C < 1 || C > kMaxC || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   int N = 1;
   while (N < C) N <<= 1;
   const size_t smem = sizeof(uint64_t) * N;
@@ -152,7 +170,7 @@ int launch(const void* key1, const void* Eng, const void* prob,
       merge_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(sizeof(uint64_t) * kMaxC));
   if (err != cudaSuccess) return static_cast<int>(err);
-  merge_kernel<T><<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  merge_kernel<T><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(key1), static_cast<const double*>(Eng),
       static_cast<const T*>(prob), static_cast<const uint8_t*>(valid),
       static_cast<const int64_t*>(deg), min_dEng, T(neg), C, N,
@@ -168,20 +186,20 @@ extern "C" {
 
 int tnax_merge_f32(const void* key1, const void* Eng, const void* prob,
                    const void* valid, const void* deg, double min_dEng,
-                   double neg, int C, void* perm, void* seg, void* Emin,
-                   void* first_min, void* gprob, void* deg_seg,
+                   double neg, int C, int B, void* perm, void* seg,
+                   void* Emin, void* first_min, void* gprob, void* deg_seg,
                    void* stream) {
-  return launch<float>(key1, Eng, prob, valid, deg, min_dEng, neg, C, perm,
-                       seg, Emin, first_min, gprob, deg_seg, stream);
+  return launch<float>(key1, Eng, prob, valid, deg, min_dEng, neg, C, B,
+                       perm, seg, Emin, first_min, gprob, deg_seg, stream);
 }
 
 int tnax_merge_f64(const void* key1, const void* Eng, const void* prob,
                    const void* valid, const void* deg, double min_dEng,
-                   double neg, int C, void* perm, void* seg, void* Emin,
-                   void* first_min, void* gprob, void* deg_seg,
+                   double neg, int C, int B, void* perm, void* seg,
+                   void* Emin, void* first_min, void* gprob, void* deg_seg,
                    void* stream) {
-  return launch<double>(key1, Eng, prob, valid, deg, min_dEng, neg, C, perm,
-                        seg, Emin, first_min, gprob, deg_seg, stream);
+  return launch<double>(key1, Eng, prob, valid, deg, min_dEng, neg, C, B,
+                        perm, seg, Emin, first_min, gprob, deg_seg, stream);
 }
 
 const char* tnax_cuda_error_string(int err) {

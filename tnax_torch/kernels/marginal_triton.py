@@ -1,11 +1,14 @@
-"""Triton kernel K3: the marginal epilogue, one program per branch row.
+"""Triton kernel K3: the marginal epilogue, one program per branch row of
+each instance (a grid of B * M programs).
 
 Replaces the elementwise tail of tnax/engine.py ``marginal_step`` (after
 its two GEMMs) and ``row_step``'s log2-probabilities (parallel.py
 ``logP``/``probf``): per branch m, gather g[p] = T2[m, drindex[p]] and
 the Boltzmann column lB[p, lidx[m], uidx[m]], subtract the column's max,
 exponentiate, mask the invalid states, clamp negative marginals,
-normalize, take log2 and add the branch's log2-probability.
+normalize, take log2 and add the branch's log2-probability. Program
+(b, m) reads instance b's tables and its count of valid states from
+device tensors, so one launch serves a whole fleet.
 
 What bounds it on the card: memory traffic and launch count, not
 arithmetic. Eager PyTorch runs this tail as some thirty launches over
@@ -31,24 +34,28 @@ import triton.language.extra.libdevice as libdevice
 
 
 @triton.jit
-def _marginal_epilogue_kernel(T2, lB, dr, lidx, uidx, prob, valid, consts,
-                              probf, mPn_out, nvalid, Np, lhlv, lv, t2_stride,
-                              BLOCK: tl.constexpr):
-    m = tl.program_id(0)
+def _marginal_epilogue_kernel(T2, lB, dr, lidx, uidx, prob, valid, nvalid,
+                              consts, probf, mPn_out, M, Np, lhlv, lv,
+                              t2_bstride, t2_stride, BLOCK: tl.constexpr):
+    pid = tl.program_id(0)          # = b * M + m
+    b = pid // M
+    m = pid - b * M
     p = tl.arange(0, BLOCK)
     inb = p < Np
     NEG = tl.load(consts)        # -1e30 in the working dtype
     BIG = tl.load(consts + 1)    # the dtype's largest finite value
-    li = tl.load(lidx + m)
-    ui = tl.load(uidx + m)
-    drp = tl.load(dr + p, mask=inb, other=0)
-    g = tl.load(T2 + m * t2_stride + drp, mask=inb, other=0.0)
-    lBlu = tl.load(lB + p * lhlv + li * lv + ui, mask=inb,
+    nv = tl.load(nvalid + b)
+    li = tl.load(lidx + pid)
+    ui = tl.load(uidx + pid)
+    drp = tl.load(dr + b * Np + p, mask=inb, other=0)
+    g = tl.load(T2 + b * t2_bstride + m * t2_stride + drp, mask=inb,
+                other=0.0)
+    lBlu = tl.load(lB + (b * Np + p) * lhlv + li * lv + ui, mask=inb,
                    other=-float("inf"))
     shift = tl.max(lBlu, axis=0)
     shift = tl.where((shift >= -BIG) & (shift <= BIG), shift, 0.0)
     Pn = g * libdevice.exp(lBlu - shift)
-    smask = p < nvalid
+    smask = p < nv
     Pn = tl.where(smask, Pn, 0.0)
     mPn = tl.min(tl.where(smask, Pn, BIG), axis=0)
     neg = mPn < 0
@@ -60,16 +67,15 @@ def _marginal_epilogue_kernel(T2, lB, dr, lidx, uidx, prob, valid, consts,
     no = tl.sum(Pn, axis=0)
     good = no > 0
     nrm = tl.where(good, no, 1.0)
-    # nvalid may arrive as a constexpr (Triton specializes ints equal to 1)
-    uniform = smask.to(Pn.dtype) / (nvalid * 1.0)
+    uniform = smask.to(Pn.dtype) / nv.to(Pn.dtype)
     Pn = tl.where(good, Pn / nrm, uniform)
     mPn = tl.where(good, mPn / nrm, -1.0)
     logP = tl.where(Pn > 0, libdevice.log2(tl.where(Pn > 0, Pn, 1.0)), NEG)
-    v = tl.load(valid + m)
-    pm = tl.load(prob + m)
+    v = tl.load(valid + pid)
+    pm = tl.load(prob + pid)
     out = tl.where(v != 0, pm + logP, NEG)
-    tl.store(probf + m * Np + p, out, mask=inb)
-    tl.store(mPn_out + m, mPn)
+    tl.store(probf + pid * Np + p, out, mask=inb)
+    tl.store(mPn_out + pid, mPn)
 
 
 @functools.lru_cache(maxsize=8)
@@ -81,30 +87,39 @@ def _consts(neg, dtype, device):
 
 
 def launch(T2, lB, drindex, lidx, uidx, nvalid, prob, valid, neg):
-    """Run the kernel; arguments as ``marginal.marginal_epilogue_plain``.
-    Returns (probf (M, Np), mPn (M,))."""
-    M = T2.shape[0]
-    Np, lh, lv = lB.shape
+    """Run the kernel; arguments as ``marginal.marginal_epilogue_plain``,
+    with ``nvalid`` a (B,) tensor on the card. Returns (probf (B, M, Np),
+    mPn (B, M))."""
+    B, M = T2.shape[:2]
+    Np, lh, lv = lB.shape[1:]
     dtype = T2.dtype
     if dtype not in (torch.float32, torch.float64) or lB.dtype != dtype \
             or prob.dtype != dtype:
         raise ValueError(f"marginal_epilogue: unsupported dtypes "
                          f"{T2.dtype}, {lB.dtype}, {prob.dtype}")
-    if T2.shape[1] != lh * lv or drindex.shape != (Np,) or \
-            lidx.shape != (M,) or uidx.shape != (M,) or \
-            prob.shape != (M,) or valid.shape != (M,):
+    if T2.shape != (B, M, lh * lv) or lB.shape[0] != B or \
+            drindex.shape != (B, Np) or lidx.shape != (B, M) or \
+            uidx.shape != (B, M) or prob.shape != (B, M) or \
+            valid.shape != (B, M):
         raise ValueError("marginal_epilogue: inconsistent shapes")
+    if not torch.is_tensor(nvalid) or nvalid.shape != (B,) or \
+            nvalid.device != T2.device:
+        raise ValueError("marginal_epilogue: nvalid must be a (B,) tensor "
+                         "on the card")
     T2 = T2.contiguous()
     lB = lB.contiguous()
     dev = T2.device
     consts = _consts(neg, dtype, dev)
-    probf = torch.empty((M, Np), dtype=dtype, device=dev)
-    mPn = torch.empty((M,), dtype=dtype, device=dev)
+    probf = torch.empty((B, M, Np), dtype=dtype, device=dev)
+    mPn = torch.empty((B, M), dtype=dtype, device=dev)
     BLOCK = max(16, triton.next_power_of_2(Np))
-    _marginal_epilogue_kernel[(M,)](
-        T2, lB, drindex.to(torch.int32).contiguous(),
-        lidx.to(torch.int32).contiguous(), uidx.to(torch.int32).contiguous(),
-        prob.contiguous(), valid.to(torch.int8).contiguous(), consts, probf,
-        mPn, int(nvalid), Np, lh * lv, lv, T2.stride(0), BLOCK=BLOCK,
+
+    def i32(t):
+        return t.to(torch.int32).contiguous()
+
+    _marginal_epilogue_kernel[(B * M,)](
+        T2, lB, i32(drindex), i32(lidx), i32(uidx), prob.contiguous(),
+        valid.to(torch.int8).contiguous(), i32(nvalid), consts, probf, mPn,
+        M, Np, lh * lv, lv, T2.stride(0), T2.stride(1), BLOCK=BLOCK,
         num_warps=4 if BLOCK <= 512 else 8)
     return probf, mPn

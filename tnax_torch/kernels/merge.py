@@ -18,57 +18,73 @@ C_MAX = 8192  # the kernel's shared-memory sort holds 8192 (key, index) words
 
 
 def segment_stats_plain(perm, neq, Eng, prob, valid, deg, min_dEng):
-    """Per-segment statistics of candidates sorted by ``perm``, where
-    ``neq`` (C-1,) flags a new group at sorted position i+1.
+    """Per-segment statistics of each instance's candidates sorted by
+    ``perm`` (B, C), where ``neq`` (B, C-1) flags a new group at sorted
+    position i+1.
 
-    Returns (seg (C,) segment id per sorted position, Emin, first_min
+    Returns (seg (B, C) segment id per sorted position, Emin, first_min
     (sorted position of the first minimum-energy valid member, C if none),
     gprob (mean log2-probability of the members within ``min_dEng`` of
     Emin, NEG for groups with no valid member), deg_seg (their int64
     degeneracy sum)), the statistics indexed by segment id over C slots.
     """
-    C = Eng.shape[0]
+    B, C = Eng.shape
     dev = Eng.device
-    Es, ps, vls, ds = Eng[perm], prob[perm], valid[perm], deg[perm]
-    seg = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                     torch.cumsum(neq, 0)])
+    Es, ps, vls, ds = (torch.gather(t, 1, perm)
+                       for t in (Eng, prob, valid, deg))
+    seg = torch.cat([torch.zeros((B, 1), dtype=torch.int64, device=dev),
+                     torch.cumsum(neq, 1)], dim=1)
     big = torch.finfo(Es.dtype).max
-    Emin = torch.full((C,), big, dtype=Es.dtype, device=dev).scatter_reduce(
-        0, seg, torch.where(vls, Es, big), "amin")
-    is_min = (Es == Emin[seg]) & vls
-    pos = torch.arange(C, device=dev)
-    first_min = torch.full((C,), C, dtype=torch.int64, device=dev)
-    first_min = first_min.scatter_reduce(0, seg, torch.where(is_min, pos, C),
+    Emin = torch.full((B, C), big, dtype=Es.dtype, device=dev).scatter_reduce(
+        1, seg, torch.where(vls, Es, big), "amin")
+    Emin_s = torch.gather(Emin, 1, seg)
+    is_min = (Es == Emin_s) & vls
+    pos = torch.arange(C, device=dev).expand(B, C)
+    first_min = torch.full((B, C), C, dtype=torch.int64, device=dev)
+    first_min = first_min.scatter_reduce(1, seg, torch.where(is_min, pos, C),
                                          "amin")
-    near = ((Es - Emin[seg]) <= min_dEng) & vls
-    zeros = torch.zeros((C,), dtype=ps.dtype, device=dev)
-    n_near = zeros.scatter_add(0, seg, near.to(ps.dtype))
-    psum = zeros.scatter_add(0, seg, torch.where(near, ps, 0.0))
+    near = ((Es - Emin_s) <= min_dEng) & vls
+    zeros = torch.zeros((B, C), dtype=ps.dtype, device=dev)
+    n_near = zeros.scatter_add(1, seg, near.to(ps.dtype))
+    psum = zeros.scatter_add(1, seg, torch.where(near, ps, 0.0))
     prob_mean = psum / torch.clamp(n_near, min=1.0)
     gprob = torch.where(first_min < C, prob_mean, NEG)
-    deg_seg = torch.zeros((C,), dtype=torch.int64, device=dev).scatter_add(
-        0, seg, torch.where(near, ds, 0))
+    deg_seg = torch.zeros((B, C), dtype=torch.int64, device=dev).scatter_add(
+        1, seg, torch.where(near, ds, 0))
     return seg, Emin, first_min, gprob, deg_seg
 
 
 def merge_segments_plain(key1, Eng, prob, valid, deg, min_dEng):
-    """Stable sort by ``key1`` (C,) int32, then :func:`segment_stats_plain`.
-    Returns (perm, seg, Emin, first_min, gprob, deg_seg)."""
-    ks, perm = torch.sort(key1, stable=True)
-    neq = ks[1:] != ks[:-1]
+    """Stable sort of each instance's row of ``key1`` (B, C) int32, then
+    :func:`segment_stats_plain`. (C,) inputs are the case B = 1 and give
+    (C,) outputs. Returns (perm, seg, Emin, first_min, gprob, deg_seg)."""
+    if key1.dim() == 1:
+        out = merge_segments_plain(*(t[None] for t in (key1, Eng, prob,
+                                                      valid, deg)), min_dEng)
+        return tuple(t[0] for t in out)
+    ks, perm = torch.sort(key1, dim=1, stable=True)
+    neq = ks[:, 1:] != ks[:, :-1]
     return (perm,) + segment_stats_plain(perm, neq, Eng, prob, valid, deg,
                                          min_dEng)
 
 
 def merge_segments(key1, Eng, prob, valid, deg, min_dEng):
-    """Grouping and segment statistics of the merge; the CUDA kernel on
-    CUDA tensors (C <= 8192), the plain version on CPU tensors. See
+    """Grouping and segment statistics of the merge of B instances; the
+    CUDA kernel on CUDA tensors (one launch, one block per instance,
+    C <= 8192), the plain version on CPU tensors. See
     :func:`merge_segments_plain`."""
     if key1.device.type == "cpu":
         return merge_segments_plain(key1, Eng, prob, valid, deg, min_dEng)
     if key1.device.type != "cuda":
         raise ValueError(f"merge_segments: unsupported device {key1.device}")
-    C = key1.shape[0]
+    if key1.dim() == 1:
+        out = merge_segments(*(t[None] for t in (key1, Eng, prob, valid,
+                                                deg)), min_dEng)
+        return tuple(t[0] for t in out)
+    if key1.dim() != 2:
+        raise ValueError(f"merge_segments: keys must be (C,) or (B, C), got "
+                         f"{tuple(key1.shape)}")
+    B, C = key1.shape
     if not 1 <= C <= C_MAX:
         raise ValueError(f"merge_segments: the kernel takes 1..{C_MAX} "
                          f"candidates, got {C}")
@@ -77,27 +93,30 @@ def merge_segments(key1, Eng, prob, valid, deg, min_dEng):
         raise ValueError(f"merge_segments: energies must be float64 and "
                          f"probabilities float32/64, got {Eng.dtype}, "
                          f"{prob.dtype}")
-    for t, dt in ((key1, torch.int32), (valid, torch.bool),
+    for t, dt in ((key1, torch.int32), (Eng, torch.float64),
+                  (prob, prob.dtype), (valid, torch.bool),
                   (deg, torch.int64)):
-        if t.dtype != dt or t.shape != (C,):
-            raise ValueError(f"merge_segments: expected ({C},) {dt}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
+        if t.dtype != dt or t.shape != (B, C) or t.device != key1.device:
+            raise ValueError(f"merge_segments: expected ({B}, {C}) {dt} on "
+                             f"{key1.device}, got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
     key1, Eng, prob, valid, deg = (t.contiguous() for t in
                                    (key1, Eng, prob, valid, deg))
     dev = key1.device
     i64 = dict(dtype=torch.int64, device=dev)
-    perm, seg, first_min, deg_seg = (torch.empty(C, **i64) for _ in range(4))
-    Emin = torch.empty(C, dtype=torch.float64, device=dev)
-    gprob = torch.empty(C, dtype=prob.dtype, device=dev)
+    perm, seg, first_min, deg_seg = (torch.empty((B, C), **i64)
+                                     for _ in range(4))
+    Emin = torch.empty((B, C), dtype=torch.float64, device=dev)
+    gprob = torch.empty((B, C), dtype=prob.dtype, device=dev)
     dll = build.load("merge")
     fn = dll.tnax_merge_f64 if prob.dtype == torch.float64 else \
         dll.tnax_merge_f32
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_double, ctypes.c_double,
-                                           ctypes.c_int] \
+                                           ctypes.c_int, ctypes.c_int] \
         + [ctypes.c_void_p] * 7
     fn.restype = ctypes.c_int
     err = fn(*(build.ptr(t) for t in (key1, Eng, prob, valid, deg)),
-             float(min_dEng), NEG, C,
+             float(min_dEng), NEG, C, B,
              *(build.ptr(t) for t in (perm, seg, Emin, first_min, gprob,
                                       deg_seg)),
              build.stream(dev))

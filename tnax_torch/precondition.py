@@ -3,9 +3,10 @@
 Counterpart of ``tnax/precondition.py:280-516``. The vertical gauges of
 every row interface are balanced with LAPACK-style diagonal scaling of
 the bond environments between the top and bottom boundary MPS. tnax
-vmaps :func:`_balance_one_interface` over the Ny-1 interfaces; here the
-interface is a leading batch dimension ``i`` of every tensor.
-:func:`gebal_scale` is kernel K1 on CUDA.
+vmaps :func:`_balance_one_interface` over the Ny-1 interfaces, and the
+fleet vmaps that over its B instances; here the B * (Ny-1) interfaces
+are one leading batch dimension ``i`` of every tensor, so each call of
+:func:`gebal_scale` (kernel K1 on CUDA) balances all of them at once.
 """
 
 from __future__ import annotations
@@ -144,30 +145,40 @@ def _balance_one_interface(B, T, nd, max_scale):
 
 def _ladder_program(Es, Esl, Esu, dmap, rmap, X0, betas, ndall, max_scale,
                     *, Dmax, tolS, tolV, max_sweeps, lh, lv, omega=None):
-    """The balancing beta ladder: for each rung, the gauged Boltzmann
-    tensors at its beta, both D=``Dmax`` boundary stacks, the interface
-    sweeps, and the scales folded into the gauges. The stacks zip up with
-    the randomized sketch (``omega``, see ``bmps.zipup_apply``), as in
-    tnax, whose ladder takes the ambient default.
+    """The balancing beta ladder of B instances: for each rung, the gauged
+    Boltzmann tensors at its beta, both D=``Dmax`` boundary stacks (one
+    build of 2B lanes), the sweeps of all B * (Ny-1) interfaces, and the
+    scales folded into the gauges. The stacks zip up with the randomized
+    sketch (``omega``, see ``bmps.zipup_apply``), as in tnax, whose ladder
+    takes the ambient default.
 
-    ``betas`` is a sequence of floats, ``ndall`` (Ny-1, Nx) the valid
-    vertical leg dims. Returns (X, overlaps (R, 4, Ny-1, Nx)).
+    Tables and gauges carry the leading instance axis B; ``betas`` is a
+    sequence of floats, ``ndall`` (B, Ny-1, Nx) the valid vertical leg
+    dims. Returns (X, overlaps (B, R, 4, Ny-1, Nx)).
     """
-    Ny = X0["Xd"].shape[0]
+    B, Ny = X0["Xd"].shape[:2]
+    Ni = Ny - 1
     X = dict(X0)
     overs = []
+
+    def interfaces(rho):
+        # rows 1..Ny-1 of every instance, as one batch of B * Ni
+        return rho[:, 1:Ny].reshape((B * Ni,) + rho.shape[2:])
+
     for beta in betas:
         _, Wt = engine.peps_rows(Es, Esl, Esu, dmap, rmap, X["Xl"], X["Xr"],
                                  X["Xu"], X["Xd"], beta, lh=lh, lv=lv)
         rhoT, rhoB = engine.build_rho_both(
             Wt, Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
             rsvd=True, omega=omega)
-        s2, s3, o1_2, o2_2, o1_3, o2_3 = _balance_one_interface(
-            rhoB[1:Ny], rhoT[1:Ny], ndall, max_scale)
-        s = s2 * s3                                     # (Ny-1, Nx, lv)
+        outs = _balance_one_interface(interfaces(rhoB), interfaces(rhoT),
+                                      ndall.reshape(B * Ni, -1), max_scale)
+        s2, s3, o1_2, o2_2, o1_3, o2_3 = (o.reshape((B, Ni) + o.shape[1:])
+                                          for o in outs)
+        s = s2 * s3                                     # (B, Ny-1, Nx, lv)
         Xd, Xu = X["Xd"].clone(), X["Xu"].clone()
-        Xd[:-1] = Xd[:-1] * s
-        Xu[1:] = Xu[1:] / s
+        Xd[:, :-1] = Xd[:, :-1] * s
+        Xu[:, 1:] = Xu[:, 1:] / s
         X = dict(X, Xd=Xd, Xu=Xu)
-        overs.append(torch.stack([o1_2, o2_2, o1_3, o2_3]))
-    return X, torch.stack(overs)
+        overs.append(torch.stack([o1_2, o2_2, o1_3, o2_3], dim=1))
+    return X, torch.stack(overs, dim=1)

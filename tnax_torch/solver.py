@@ -20,8 +20,9 @@ class Solver:
     Args mirror tnax's: mode ('Ising' only so far), Nx, Ny, Nc (lattice
     shape, Nc spins per block), beta (inverse temperature of the Gibbs
     PEPS), J ([[i, j, Jij], ...], 0-based). ``device`` and ``dtype`` set
-    where and in which float type the contractions run (default: CPU
-    float64; CUDA float32).
+    where and in which float type the contractions run: by default CUDA
+    in float32 (RuntimeError where there is no CUDA card); pass
+    ``device="cpu"`` for the CPU, where the default is float64.
     """
 
     def __init__(self, mode="Ising", Nx=4, Ny=4, Nc=8, beta=1, J=None,

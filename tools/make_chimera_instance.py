@@ -14,9 +14,14 @@ numpy's default_rng(seed).
 
 ``--oracle`` also runs tnax's ``flagship_search_gs`` on the written file
 in float64 on the CPU at the flagship point (M=1024, D=32,
-relative_P_cutoff=1e-8) and writes ``<out stem>_oracle.json`` beside it:
+relative_P_cutoff=1e-8, beta=3; merge cap ``--cand-factor`` * M, tnax's
+default 8 unless given) and writes ``<out stem>_oracle.json`` beside it:
 the exact ``energy_Jij`` energy of the returned state, its degeneracy,
-block states, the parameters, the wall-clock and the tnax commit.
+block states, the parameters, the wall-clock and the tnax commit. The
+fleet instances use the fleet's operating point:
+
+    python tools/make_chimera_instance.py --L 512 --seed 1 \
+        --out tests/data/chimera512_synth_s1.txt --oracle --cand-factor 2
 """
 
 from __future__ import annotations
@@ -64,7 +69,7 @@ def write_instance(path: str, n: int, seed: int) -> None:
             f.write(f"{i + 1} {j + 1} {v!r}\n")
 
 
-def tnax_oracle(path: str, n: int) -> dict:
+def tnax_oracle(path: str, n: int, cand_factor: int = 8) -> dict:
     """tnax flagship search on the instance, float64 on the CPU."""
     os.environ.setdefault("TNAX_PLATFORM", "cpu")
     os.environ["JAX_PLATFORMS"] = "cpu"
@@ -78,7 +83,8 @@ def tnax_oracle(path: str, n: int) -> dict:
     ins = tnax.Solver(mode="Ising", Nx=n, Ny=n, Nc=8, J=J, beta=3)
     t0 = time.time()
     res = parallel.flagship_search_gs(ins, M=M, relative_P_cutoff=CUTOFF,
-                                      Dmax=DMAX, zipup_rsvd=True)
+                                      Dmax=DMAX, cand_factor=cand_factor,
+                                      zipup_rsvd=True)
     seconds = time.time() - t0
     ins.states = np.asarray(res["states"])[None, :][:, ins.order]
     energy = float(tnax.energy_Jij(J, ins.binary_states())[0])
@@ -86,7 +92,8 @@ def tnax_oracle(path: str, n: int) -> dict:
                             capture_output=True, text=True).stdout.strip()
     return dict(
         instance=os.path.basename(path), L=8 * n * n, Nx=n, Ny=n, Nc=8,
-        beta=3, M=M, Dmax=DMAX, relative_P_cutoff=CUTOFF, zipup_rsvd=True,
+        beta=3, M=M, Dmax=DMAX, relative_P_cutoff=CUTOFF,
+        cand_factor=cand_factor, zipup_rsvd=True,
         dtype="float64", device="cpu", energy=energy,
         degeneracy=int(res["degeneracy"]),
         states=[int(s) for s in np.asarray(res["states"])],
@@ -101,11 +108,13 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", required=True)
     ap.add_argument("--oracle", action="store_true")
+    ap.add_argument("--cand-factor", type=int, default=8,
+                    help="merge cap of the oracle search, in units of M")
     args = ap.parse_args()
     n = SIDES[args.L]
     write_instance(args.out, n, args.seed)
     if args.oracle:
-        out = tnax_oracle(args.out, n)
+        out = tnax_oracle(args.out, n, args.cand_factor)
         with open(os.path.splitext(args.out)[0] + "_oracle.json", "w") as f:
             json.dump(out, f, indent=1)
             f.write("\n")

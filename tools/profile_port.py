@@ -1,13 +1,17 @@
 """Profile one warm flagship search of the port (tnax_torch) on a CUDA card.
 
-    python tools/profile_port.py [--dtype float32] \
+    python tools/profile_port.py [--dtype float32] [--fleet] \
         [--out chiprun_out/profile_port.txt]
 
 Runs the flagship search on the committed synthetic chimera-2048 instance
-once cold (kernel builds, cuSOLVER/cuBLAS handles, Triton compile), then
-once warm under ``torch.profiler`` with CPU and CUDA activities. Writes the
-stage times, the wall time, the summed device-kernel time and the
-device's idle share, and the top operators by device time and by host
+once cold (kernel builds, cuSOLVER/cuBLAS handles, Triton compile), once
+warm without the profiler (its wall-clock), then once warm under
+``torch.profiler`` with CPU and CUDA activities. With
+``--fleet`` the search is one fleet batch instead: the 8 committed
+chimera-512 instances through ``multi_flagship_search_gs`` at their
+oracles' operating point (cand_factor=2). Writes the stage times, the
+wall time, the summed device-kernel time and the device's idle share,
+the kernel launches, and the top operators by device time and by host
 time, to ``--out``; prints the summary lines. Needs a CUDA card.
 """
 
@@ -16,6 +20,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -26,6 +31,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "float64"))
+    ap.add_argument("--fleet", action="store_true",
+                    help="profile one batch of the 8 chimera-512 instances")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "profile_port.txt"))
     args = ap.parse_args()
@@ -37,27 +44,37 @@ def main():
     sys.path.insert(0, ROOT)
     import tnax_torch as tt
 
-    base = os.path.join(ROOT, "tests", "data", "chimera2048_synth_s0")
-    with open(base + "_oracle.json") as f:
+    data = os.path.join(ROOT, "tests", "data")
+    bases = [os.path.join(data, f"chimera512_synth_s{s}") for s in
+             range(1, 9)] if args.fleet else \
+        [os.path.join(data, "chimera2048_synth_s0")]
+    with open(bases[0] + "_oracle.json") as f:
         oracle = json.load(f)
-    J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(base + ".txt")), 1 / 75)
+    Js = [tt.round_Jij(tt.Jij_f2p(tt.load_Jij(b + ".txt")), 1 / 75)
+          for b in bases]
     dtype = getattr(torch, args.dtype)
 
     def run(stages):
-        ins = tt.Solver(mode="Ising", Nx=oracle["Nx"], Ny=oracle["Ny"],
-                        Nc=oracle["Nc"], J=J, beta=oracle["beta"],
-                        device="cuda", dtype=dtype)
-        return tt.parallel.flagship_search_gs(
-            ins, M=oracle["M"], relative_P_cutoff=oracle["relative_P_cutoff"],
-            Dmax=oracle["Dmax"], stage_times=stages)
+        solvers = [tt.Solver(mode="Ising", Nx=oracle["Nx"], Ny=oracle["Ny"],
+                             Nc=oracle["Nc"], J=J, beta=oracle["beta"],
+                             device="cuda", dtype=dtype) for J in Js]
+        return tt.parallel.multi_flagship_search_gs(
+            solvers, M=oracle["M"],
+            relative_P_cutoff=oracle["relative_P_cutoff"],
+            Dmax=oracle["Dmax"], cand_factor=oracle.get("cand_factor", 8),
+            stage_times=stages)
 
     run({})
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run({})
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
     stages = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = run(stages)
+        rs = run(stages)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -66,14 +83,22 @@ def main():
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA)
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
     lines = [
-        f"device {torch.cuda.get_device_name(0)}; L2048 {args.dtype} "
-        f"M={oracle['M']} D={oracle['Dmax']}",
+        f"device {torch.cuda.get_device_name(0)} ({smi}); "
+        f"{len(Js)} x L{oracle['L']} {args.dtype} M={oracle['M']} "
+        f"D={oracle['Dmax']}",
         f"wall {wall:.3f} s (profiled); stages "
         + " ".join(f"{k}={v:.3f}" for k, v in stages.items()),
         f"device kernel time {device_us / 1e6:.3f} s; device idle share "
-        f"{1 - device_us / 1e6 / wall:.3f}; {launches} kernel launches",
-        f"energy {res['energy']:.6f} deg {res['degeneracy']}",
+        f"{1 - device_us / 1e6 / wall:.3f} of the profiled wall; "
+        f"{launches} kernel launches",
+        f"warm wall without the profiler {wall_plain:.3f} s (idle share "
+        f"{1 - device_us / 1e6 / wall_plain:.3f} against it)",
+        "energies " + " ".join(f"{r['energy']:.6f}" for r in rs)
+        + "; degeneracies " + " ".join(str(r["degeneracy"]) for r in rs),
         "",
         "top operators by device time:",
         events.table(sort_by="self_device_time_total", row_limit=30),
@@ -83,7 +108,7 @@ def main():
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         f.write("\n".join(lines) + "\n")
-    print("\n".join(lines[:4]))
+    print("\n".join(lines[:5]))
 
 
 if __name__ == "__main__":
