@@ -25,7 +25,21 @@ Run from the root of a checkout on a machine with one CUDA card. It
      (energy and degeneracy), and each kernel's launches per batch against
      one launch per site (K2, K3) or per interface sweep step (K1) for the
      whole fleet; then the float32 single-instance runs of the same
-     instances, whose agreement with the fleet is printed, not gated.
+     instances, whose agreement with the fleet is printed, not gated;
+  5. drives Gibbs sampling through its entry points (Solver ->
+     flagship_sample / multi_flagship_sample) at beta=3, D=48,
+     pre_steps=2: the e02 point (128 walkers) on chimera512_synth_s1 and
+     on the fleet of 8 (float64 once, float32 cold and three warm), and
+     1024 walkers on chimera-2048 (float32 cold and warm, then float32
+     and float64 with every draw examined), with stage times, samples per
+     second and instances per minute; every sampled energy is checked
+     against ``energy_Jij`` of its state, the launches of K4 against one
+     per site and of K1 against one per interface sweep step, and the
+     float64 mean energy on s1 against the committed tnax sampling
+     oracle; the float32 fleet is printed beside single runs on the same
+     uniforms, and the examined passes print their draws from the uniform
+     row (saturated or vanishing marginals) by cause: the float64 pass
+     must have none.
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before that line is printed. Without a CUDA card it fails.
@@ -44,7 +58,14 @@ DATA = os.path.join(ROOT, "tests", "data")
 INSTANCE = os.path.join(DATA, "chimera2048_synth_s0.txt")
 ORACLE = os.path.join(DATA, "chimera2048_synth_s0_oracle.json")
 FLEET = [os.path.join(DATA, f"chimera512_synth_s{s}") for s in range(1, 9)]
+SAMPLE_ORACLE = os.path.join(DATA, "chimera512_synth_s1_sample_oracle.json")
+# the sampling points: beta=3, D=48, a two-rung ladder; the e02 point
+# draws 128 walkers per instance, chimera-2048 1024
+SAMPLE_KW = dict(Dmax=48, pre_steps=2)
+E02_M, E2048_M = 128, 1024
+FLEET_SEED = 1   # the single e02 run is stream 0 of seed 0
 REPS = 20
+SEARCH_KERNELS = ("gebal", "merge", "marginal_epilogue")
 # comparison tolerances of kernel vs plain version, by dtype name
 RTOL = {"float32": 1e-5, "float64": 1e-12}
 # peak rates of one H100 SXM (NVIDIA's data sheet; FP64 outside the tensor
@@ -88,6 +109,20 @@ def max_abs_err(a, b, torch):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def gathered_bytes(T2, lB, drindex, lidx, uidx, nvalid, torch):
+    """Bytes the marginal tail (K3, K4) must read of its gathered inputs:
+    the Np-state Boltzmann column lB[b, :, l, u] once for each distinct
+    (l, u) pair of instance b, the valid states' entries of each branch's
+    row of T2, and the indices at the 32-bit width the kernels read."""
+    lv = lB.shape[3]
+    Np = lB.shape[1]
+    pairs = sum(int(torch.unique(lidx[b].long() * lv + uidx[b].long()).numel())
+                for b in range(lidx.shape[0]))
+    nv = int(nvalid.long().clamp(max=Np).sum())
+    return (pairs * Np + nv * lidx.shape[1]) * T2.element_size() \
+        + 4 * (nv + 2 * lidx.numel() + nvalid.numel())
 
 
 def bound(moved, ops, name):
@@ -219,8 +254,54 @@ def kernel_checks(tt, torch, dev):
                 out, ("marginal_epilogue", label), name, pf_k, pf_p,
                 lambda: kernels.marginal_epilogue(*args),
                 lambda: kernels.marginal_epilogue_plain(*args),
-                nbytes(*args, pf_k, mq_k), 10 * B * M * Np, torch,
+                gathered_bytes(*args[:6], torch)
+                + nbytes(probv, bvalid, pf_k, mq_k), 10 * B * M * Np, torch,
                 extra_err=[(mq_k, mq_p)])
+        # K4: the sampler's draw at the e02 point (128 walkers, one
+        # instance and the fleet of 8), chimera-2048's 1024 walkers, and a
+        # fleet whose counts of valid states differ; the uniforms are
+        # drawn once and shared by both versions
+        for nvs, M4, label in (([256], 128, "B1"), ([256] * 8, 128, "B8"),
+                               ([256], 1024, "B1_M1024"),
+                               ([200, 256, 97, 1, 256, 180, 64, 255], 128,
+                                "B8_ragged")):
+            B = len(nvs)
+            T2 = rand(B, M4, lv * lh).abs() - 0.05 * rand(B, M4, lv * lh).abs()
+            lB = -rand(B, Np, lh, lv).abs() * 30
+            for b, nv in enumerate(nvs):
+                lB[b, nv:] = -float("inf")
+            drindex = torch.stack([torch.randperm(lv * lh, generator=gen)[:Np]
+                                   for _ in range(B)]).to(dev)
+            lidx = torch.randint(0, lh, (B, M4), generator=gen).to(dev)
+            uidx = torch.randint(0, lv, (B, M4), generator=gen).to(dev)
+            nvalid = torch.tensor(nvs, device=dev)
+            u = torch.rand((B, M4), generator=gen,
+                           dtype=torch.float64).to(dev, dtype)
+            args = (T2, lB, drindex, lidx, uidx, nvalid, u)
+            ind_k, mq_k = kernels.sample_draw(*args)
+            ind_p, mq_p = kernels.sample_draw_plain(*args)
+            check(torch.allclose(mq_k, mq_p, rtol=rtol, atol=rtol),
+                  f"K4 sample_draw {name} {label}: mPn differs beyond rtol "
+                  f"{rtol}")
+            n_bad, unexplained = kernels.sample.draw_mismatches(
+                ind_k, ind_p, args)
+            limit = 0 if dtype == torch.float64 else 1e-3 * ind_k.numel()
+            check(unexplained == 0 and n_bad <= limit,
+                  f"K4 sample_draw {name} {label}: {n_bad} draws differ, "
+                  f"{unexplained} of them not at a cumulative boundary")
+            check(bool(((ind_k >= 0) & (ind_k < nvalid[:, None])).all()),
+                  f"K4 sample_draw {name} {label}: a draw out of range")
+            print(f"kernel sample_draw {name} {label}: {n_bad} of "
+                  f"{ind_k.numel()} draws differ from the plain version, "
+                  f"all within 64 eps of a cumulative boundary", flush=True)
+            # about twelve operations per (walker, state): gather, shift,
+            # exp, mask, min, clamp, sum, divide, scan add, compare, count
+            compare_and_time(
+                out, ("sample_draw", label), name, mq_k, mq_p,
+                lambda: kernels.sample_draw(*args),
+                lambda: kernels.sample_draw_plain(*args),
+                gathered_bytes(*args[:6], torch) + nbytes(u, ind_k, mq_k),
+                12 * B * M4 * Np, torch)
     for k, v in out.items():
         for name, cases in v.items():
             for label, r in cases.items():
@@ -267,8 +348,9 @@ def slice_run(tt, torch, J, oracle, dtype, label):
           f"{oracle['energy']:.6f}  deg {res['degeneracy']}  merge_overflow "
           f"{res['merge_overflow']}  count_max {res['count_max']}  "
           f"launches {counts}", flush=True)
-    for k, n in counts.items():
-        check(n > 0, f"slice {label}: kernel {k} was not launched")
+    for k in SEARCH_KERNELS:
+        check(counts[k] > 0, f"slice {label}: kernel {k} was not launched")
+    check(counts["sample_draw"] == 0, f"slice {label}: the search drew")
     return seconds, stages, res, E, counts
 
 
@@ -317,7 +399,8 @@ def fleet_phase(tt, torch):
             oracles.append(json.load(f))
     o = oracles[0]
     want = dict(gebal=2 * o["Nx"], merge=o["Nx"] * o["Ny"],
-                marginal_epilogue=o["Nx"] * o["Ny"])   # pre_steps = 1
+                marginal_epilogue=o["Nx"] * o["Ny"],
+                sample_draw=0)   # pre_steps = 1
     runs = {}
     for dtype, labels in ((torch.float64, ["f64"]),
                           (torch.float32, ["f32 cold", "f32 warm 1",
@@ -362,6 +445,224 @@ def fleet_phase(tt, torch):
     return runs["f32 warm 3"][4]
 
 
+def sample_run(tt, torch, Js, n, dtype, label, M, seed=0, uniforms=None):
+    """One pass of the sampler over the chimera instances ``Js`` of n x n
+    cells (a fleet when there are several) at beta=3; returns (seconds, stage times, results,
+    launch counts of this run). Gates every sampled energy on its
+    decoded state and the launches of K1 and K4 on one per interface
+    sweep step and per site."""
+    from tnax_torch import kernels
+    solvers = [tt.Solver(mode="Ising", Nx=n, Ny=n, Nc=8, J=J, beta=3,
+                         device="cuda", dtype=dtype) for J in Js]
+    stages = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rs = tt.multi_flagship_sample(solvers, M=M, seed=seed, uniforms=uniforms,
+                                  stage_times=stages, **SAMPLE_KW)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    B = len(Js)
+    print(f"sample {label}: {seconds:.3f} s  {B * M / seconds:.1f} samples/s"
+          f"  {60 * B / seconds:.2f} instances/min  stages "
+          + " ".join(f"{k}={v:.3f}" for k, v in stages.items())
+          + f"  launches {counts}  lowest "
+          + " ".join(f"{float(r['energy'].min()):.6f}" for r in rs)
+          + "  negative_probability "
+          + " ".join(f"{r['negative_probability']:.3g}" for r in rs),
+          flush=True)
+    want = dict(gebal=2 * SAMPLE_KW["pre_steps"] * n, merge=0,
+                marginal_epilogue=0, sample_draw=n * n)
+    check(counts == want, f"sample {label}: launches {counts}, want {want} "
+          f"(K4 once per site, K1 once per interface sweep step)")
+    for J, ins, r in zip(Js, solvers, rs):
+        ins.states = r["states"][:, ins.order]
+        E = tt.energy_Jij(J, ins.binary_states())
+        err = float(abs(r["energy"] - E).max())
+        check(r["states"].shape == (M, n * n) and err <= 1e-9,
+              f"sample {label}: energies differ from energy_Jij of the "
+              f"states by {err}")
+    return seconds, stages, rs, counts
+
+
+def sample_phase(tt, torch):
+    """Phase 5: Gibbs sampling through its entry points at the e02 point
+    (single s1 and the fleet of 8) and at chimera-2048; returns the
+    launch counts of the last float32 fleet pass."""
+    import numpy as np
+    from tnax_torch import parallel
+    Js = [tt.round_Jij(tt.Jij_f2p(tt.load_Jij(base + ".txt")), 1 / 75)
+          for base in FLEET]
+    search = []
+    for base in FLEET:
+        with open(base + "_oracle.json") as f:
+            search.append(json.load(f)["energy"])
+    with open(SAMPLE_ORACLE) as f:
+        orc = json.load(f)
+    # the f64 mean against tnax's: two independent samples of the same
+    # distribution, 128 and N walkers
+    tol = 5 * orc["std"] * (1 / E02_M + 1 / orc["N"]) ** 0.5
+
+    def gate_mean(label, E):
+        mean = float(np.mean(E))
+        print(f"  {label}: mean energy {mean:.6f} (tnax oracle "
+              f"{orc['mean']:.6f}, tolerance {tol:.6f}), std "
+              f"{float(np.std(E, ddof=1)):.6f}", flush=True)
+        return mean
+
+    def lowest(label, rs, oracles):
+        for r, o, name in zip(rs, oracles, FLEET):
+            lo = float(r["energy"].min())
+            note = "  below the search oracle" if lo < o - 1e-6 else ""
+            print(f"  {label} {os.path.basename(name)}: lowest sampled "
+                  f"{lo:.6f}, search oracle {o:.6f}{note}", flush=True)
+
+    out = {}
+    for group, Jg, seed in (("e02 single", Js[:1], 0),
+                            ("e02 fleet", Js, FLEET_SEED)):
+        runs = {}
+        for dtype, label in ((torch.float64, "f64"),
+                             (torch.float32, "f32 cold"),
+                             (torch.float32, "f32 warm 1"),
+                             (torch.float32, "f32 warm 2"),
+                             (torch.float32, "f32 warm 3")):
+            runs[label] = sample_run(tt, torch, Jg, 8, dtype,
+                                     f"{group} {label}", E02_M, seed=seed)
+            mean = gate_mean(f"{group} {label} s1", runs[label][2][0]
+                             ["energy"])
+            if dtype == torch.float64:
+                check(abs(mean - orc["mean"]) <= tol,
+                      f"{group} f64: mean energy {mean} on s1 is more than "
+                      f"{tol} from the tnax oracle {orc['mean']}")
+        lowest(group, runs["f32 warm 3"][2], search)
+        warm = [runs[f"f32 warm {i}"][0] for i in (1, 2, 3)]
+        med = statistics.median(warm)
+        print(f"{group} f32 warm median {med:.3f} s, spread "
+              f"{max(warm) - min(warm):.3f} s, "
+              f"{len(Jg) * E02_M / med:.1f} samples/s, "
+              f"{60 * len(Jg) / med:.2f} instances/min", flush=True)
+        out[group] = runs
+    # the f32 fleet against single runs on the same uniforms (printed:
+    # batched cuSOLVER calls may round otherwise than single ones)
+    fleet_rs = out["e02 fleet"]["f32 warm 3"][2]
+    same, t0 = 0, time.perf_counter()
+    for b, (J, rf) in enumerate(zip(Js, fleet_rs)):
+        u = parallel.instance_uniforms(FLEET_SEED, b, (8, 8, E02_M),
+                                       torch.float32, "cuda")
+        r1 = sample_run(tt, torch, [J], 8, torch.float32,
+                        f"single f32 s{b + 1}", E02_M, uniforms=u[None])[2][0]
+        agree = int((r1["states"] == rf["states"]).all(axis=1).sum())
+        same += agree == E02_M
+        print(f"  s{b + 1}: {agree} of {E02_M} walkers as in the fleet; "
+              f"mean {float(r1['energy'].mean()):.6f} fleet "
+              f"{float(rf['energy'].mean()):.6f}", flush=True)
+    print(f"f32 e02 fleet vs single runs on the same uniforms: {same} of "
+          f"{len(Js)} instances agree in every walker; 8 single runs "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    # chimera-2048, 1024 walkers: two timed float32 passes, then float32
+    # and float64 passes with every draw examined
+    J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(INSTANCE)), 1 / 75)
+    with open(ORACLE) as f:
+        E_gs = json.load(f)["energy"]
+    for dtype, label in ((torch.float32, "f32 cold"),
+                         (torch.float32, "f32 warm"),
+                         (torch.float32, "f32 examined"),
+                         (torch.float64, "f64 examined")):
+        undo = (examine_draws(tt, torch, 16, f"chimera-2048 {label}")
+                if "examined" in label else None)
+        try:
+            r = sample_run(tt, torch, [J], 16, dtype,
+                           f"chimera-2048 {label}", E2048_M)[2][0]
+        finally:
+            uniform = undo() if undo else None
+        print(f"  chimera-2048 {label}: mean energy "
+              f"{float(r['energy'].mean()):.6f}, lowest sampled "
+              f"{float(r['energy'].min()):.6f}, search oracle {E_gs:.6f}, "
+              f"negative_probability {r['negative_probability']:.3g}",
+              flush=True)
+        # float32's boundary noise may saturate a walker's marginals (tnax
+        # shows it too); float64 must not
+        if dtype == torch.float64:
+            check(uniform == 0 and r["negative_probability"] > -1,
+                  f"chimera-2048 {label}: {uniform} draws from the uniform "
+                  f"row, negative_probability {r['negative_probability']}")
+    return out["e02 fleet"]["f32 warm 3"][3]
+
+
+def examine_draws(tt, torch, Nx, label):
+    """Watch K4's draws in the sampler for one pass: after each site's
+    draw, recompute the site's marginals with the plain version on the
+    same inputs and count what went wrong. Returns the function that stops
+    watching, prints the pass's counts (the walkers that drew from the
+    uniform row, mPn = -1, by cause, and the draws of a state whose
+    marginal is 0) and returns the number of draws from the uniform row."""
+    from tnax_torch import engine
+    from tnax_torch.kernels.marginal import marginal_pn_plain
+    draw = engine.sample_draw
+    rows, tainted = [], []
+
+    def watched(T2, lB, drindex, lidx, uidx, nvalid, u):
+        indc, mPn = draw(T2, lB, drindex, lidx, uidx, nvalid, u)
+        B, M = mPn.shape
+        Np, lv = lB.shape[1], lB.shape[3]
+        Pn = marginal_pn_plain(T2, lB, drindex, lidx, uidx, nvalid)[0]
+        valid = torch.arange(Np, device=Pn.device) < nvalid[:, None, None]
+        top = (nvalid.long() - 1)[:, None, None].expand(B, M, 1)
+        above = torch.cumsum(Pn, 2).gather(2, top)[..., 0] < u
+        fb = mPn == -1
+        zero = (Pn.gather(2, indc.long()[..., None])[..., 0] == 0) & ~fb
+        g = T2.gather(2, drindex.long()[:, None, :].expand(B, M, Np))
+        col = lB.reshape(B, Np, -1).gather(2, (
+            lidx.long() * lv + uidx.long())[:, None, :].expand(B, Np, M))
+        col = col.transpose(1, 2)
+        shift = col.amax(2, keepdim=True)
+        x = col - torch.where(torch.isfinite(shift), shift, 0.0)
+        finite = ((torch.isfinite(g) | ~valid).all(2)
+                  & ~torch.isnan(col).any(2))
+        g_zero = ((g == 0) | ~valid).all(2)
+        p = g * torch.exp(x)
+        live = ((p != 0) & valid).any(2)
+        live64 = ((g.double() * torch.exp(x.double()) != 0) & valid).any(2)
+        # saturated: the most negative marginal outweighs every valid one,
+        # so all are clamped to it and the row is uniform
+        pmin = torch.where(valid, p, float("inf")).amin(2, keepdim=True)
+        saturated = (pmin[..., 0] < 0) & ((p <= pmin.abs()) | ~valid).all(2)
+        if not tainted:
+            tainted.append(torch.zeros_like(fb))
+        rows.append(torch.stack([
+            fb.sum(), (fb & tainted[0]).sum(), (fb & ~finite).sum(),
+            (fb & g_zero).sum(), (fb & ~live & live64).sum(),
+            (fb & saturated).sum(), zero.sum(), (zero & above).sum(),
+            above.sum()]))
+        tainted[0] |= zero
+        return indc, mPn
+
+    def undo():
+        engine.sample_draw = draw
+        c = torch.stack(rows).cpu()
+        tot = c.sum(0).tolist()
+
+        def first(k):
+            hit = c[:, k].nonzero()
+            return divmod(int(hit[0]), Nx) if len(hit) else None
+        print(f"  {label} draws: {len(rows)} sites; {tot[0]} draws from the "
+              f"uniform row ({tot[5]} saturated: the most negative marginal "
+              f"outweighs every valid one; {tot[1]} after an earlier "
+              f"zero-probability draw of the walker, {tot[2]} with "
+              f"non-finite inputs, {tot[3]} with T2 zero at every valid "
+              f"state, {tot[4]} where every product underflows the dtype "
+              f"but not float64), first at site (ny, nx) {first(0)}, by "
+              f"lattice row {c[:, 0].reshape(-1, Nx).sum(1).tolist()}; "
+              f"{tot[6]} draws of a state whose marginal is 0 ({tot[7]} "
+              f"with u above the last cumulative sum), first at "
+              f"{first(6)}; {tot[8]} draws with u above the last cumulative "
+              f"sum", flush=True)
+        return tot[0]
+    engine.sample_draw = watched
+    return undo
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "tnax_torch")):
         fail("no tnax_torch package beside chip_smoke.py")
@@ -373,6 +674,7 @@ def main():
     from tnax_torch.kernels import build
 
     # phase 1: the card, and the kernels' build
+    t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -381,7 +683,7 @@ def main():
           f"{torch.cuda.get_device_name(0)} count "
           f"{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    names = ("gebal", "merge")
+    names = ("gebal", "merge", "sample")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(build.load, names))
     for name in names:
@@ -423,25 +725,37 @@ def main():
     # phase 4: the fleet through its entry points
     fleet = fleet_phase(tt, torch)
 
-    # summary: kernel numbers in float32 at the fleet's shapes, launches
-    # of the last f32 fleet batch (and of the last f32 single search)
+    # phase 5: Gibbs sampling through its entry points
+    sample = sample_phase(tt, torch)
+
+    # summary: kernel numbers in float32 at the fleet's shapes; launches
+    # of the last f32 fleet batch of the path that runs the kernel (the
+    # search for K1-K3, the sampler for K4), and of the last f32 single
+    # search and f32 e02 fleet pass
     src = {"gebal": ("cuda", "tnax_torch/kernels/csrc/gebal.cu",
                      "tnax/precondition.py:280"),
            "merge": ("cuda", "tnax_torch/kernels/csrc/merge.cu",
                      "tnax/parallel.py:149"),
            "marginal_epilogue": ("triton",
                                  "tnax_torch/kernels/marginal_triton.py",
-                                 "tnax/engine.py:382")}
+                                 "tnax/engine.py:382"),
+           "sample_draw": ("cuda", "tnax_torch/kernels/csrc/sample.cu",
+                           "tnax/parallel.py:1295")}
     summary = []
     for name, (route, source, replaces) in src.items():
         r = kres[name]["float32"]["B8"]
         summary.append(dict(name=name, route=route, source=source,
-                            replaces=replaces, launches=fleet[name],
+                            replaces=replaces,
+                            launches=(sample if name == "sample_draw"
+                                      else fleet)[name],
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None,
                             launch_floor_ms=floor,
-                            launches_single=single[name]))
+                            launches_single=single[name],
+                            launches_sample_fleet=sample[name]))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
+          f"imports", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

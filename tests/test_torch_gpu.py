@@ -1,6 +1,6 @@
 """The port's kernels against their plain PyTorch versions on a CUDA
 card, at the flagship shapes and batched at the fleet's, in float32 and
-float64. Marked ``gpu`` and
+float64 (K4 at the sampler's shapes). Marked ``gpu`` and
 skipped without a card. This file imports neither jax nor tnax, so it
 runs where only the port is installed:
 
@@ -158,6 +158,46 @@ def test_marginal_kernel_matches_plain(cuda, dtype, nvalids):
     want = kernels.marginal_epilogue_plain(*args)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=_rtol(dtype), atol=_rtol(dtype))
+
+
+def _draw_args(rng, cuda, dtype, nvalids, M):
+    """K4's inputs at full width (Np=256, lh=lv=16, D=32) for one
+    instance per entry of ``nvalids``, with uniforms in the dtype."""
+    ins = [_marginal_inputs(rng, M=M, Np=256, lh=16, lv=16, D=32,
+                            nvalid=nv) for nv in nvalids]
+    lB, drindex, AT, RL, RRsel, lidx, uidx = (
+        _t(np.stack(x)).to(cuda) for x in list(zip(*ins))[:7])
+    T2 = engine._marginal_T2(*(x.to(dtype) for x in (AT, RL, RRsel)))
+    return (T2, lB.to(dtype), drindex, lidx, uidx,
+            torch.tensor(nvalids, device=cuda),
+            _t(rng.random((len(nvalids), M))).to(cuda, dtype))
+
+
+# (counts of valid states per instance, walkers): the e02 single run and
+# fleet, chimera-2048's walkers, and a fleet whose instances differ
+DRAW_CASES = {"B1_M128": ([256], 128), "B8_M128": ([256] * 8, 128),
+              "B1_M1024": ([256], 1024),
+              "B8_ragged": ([200, 256, 97, 1, 256, 180, 64, 255], 128)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(DRAW_CASES))
+def test_sample_draw_kernel_matches_plain(cuda, dtype, case):
+    nvalids, M = DRAW_CASES[case]
+    args = _draw_args(np.random.default_rng(3), cuda, dtype, nvalids, M)
+    before = kernels.sample_draw.launches
+    indc, mPn = kernels.sample_draw(*args)
+    assert kernels.sample_draw.launches == before + 1
+    indc_p, mPn_p = kernels.sample_draw_plain(*args)
+    torch.testing.assert_close(mPn, mPn_p, rtol=_rtol(dtype),
+                               atol=_rtol(dtype))
+    n_bad, unexplained = kernels.sample.draw_mismatches(indc, indc_p,
+                                                        args)
+    assert unexplained == 0
+    assert n_bad <= (0 if dtype == torch.float64 else 1e-3 * indc.numel())
+    assert bool((indc >= 0).all())
+    assert bool((indc < args[5][:, None]).all())
 
 
 @pytest.mark.gpu

@@ -41,8 +41,17 @@ def test_wrappers_count_no_launch_on_cpu():
     kernels.reset_launch_counts()
     A = torch.as_tensor(np.eye(4) * [1.0, 1e6, 1.0, 1e-6])
     kernels.gebal_scale(A[None], torch.tensor([4]), 32.0)
+    T2 = torch.ones((1, 3, 4), dtype=torch.float64)
+    lB = torch.zeros((1, 4, 2, 2), dtype=torch.float64)
+    indc, _ = kernels.sample_draw(T2, lB, torch.arange(4)[None],
+                                  torch.zeros((1, 3), dtype=torch.int64),
+                                  torch.zeros((1, 3), dtype=torch.int64),
+                                  torch.tensor([4]),
+                                  torch.tensor([[0.0, 0.3, 0.99]]))
+    assert indc.tolist() == [[0, 1, 3]]
     assert kernels.launch_counts() == dict(gebal=0, merge=0,
-                                           marginal_epilogue=0)
+                                           marginal_epilogue=0,
+                                           sample_draw=0)
 
 
 def _run_smoke(cwd):

@@ -3,8 +3,9 @@
 tnax (JAX, beside this package) is the reference; this package imports
 torch, numpy and scipy, never jax or tnax. Module and function names
 follow tnax's so that each counterpart can be found. The slices ported
-so far are the flagship ground-state search and its fleet, which runs
-many same-shape instances through one batch axis::
+so far are the flagship ground-state search and Gibbs sampling, each
+for one instance and for a fleet, which runs many same-shape instances
+through one batch axis::
 
     import torch, tnax_torch as tt
     J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(path)), 1 / 75)
@@ -15,20 +16,25 @@ many same-shape instances through one batch axis::
                for J_b in Js]
     rs = tt.parallel.multi_flagship_search_gs(
         solvers, M=1024, relative_P_cutoff=1e-8, Dmax=32, cand_factor=2)
+    smp = tt.flagship_sample(ins, M=128, Dmax=48, pre_steps=2, seed=0)
+    smps = tt.multi_flagship_sample(solvers, M=128, Dmax=48, pre_steps=2)
 
 Solvers run on CUDA in float32 unless given ``device`` and ``dtype``
-(``device="cpu"`` runs the plain versions in float64). Three device
+(``device="cpu"`` runs the plain versions in float64). Four device
 functions are hand-written kernels (``tnax_torch.kernels``): K1
-balancing scales and K2 beam-merge segments in CUDA C++, K3 the marginal
-epilogue in Triton. They build at first use on a CUDA tensor.
+balancing scales, K2 beam-merge segments and K4 the sampler's per-site
+draw in CUDA C++, K3 the marginal epilogue in Triton. They build at
+first use on a CUDA tensor.
 """
 
 from . import config, parallel
+from .parallel import flagship_sample, multi_flagship_sample
 from .problems import (Jij_f2p, energy_Jij, load_Jij, minus_Jij,
                        round_Jij)
 from .solver import Solver
 
-__all__ = ["Solver", "parallel", "config", "load_Jij", "round_Jij",
-           "minus_Jij", "Jij_f2p", "energy_Jij"]
+__all__ = ["Solver", "parallel", "config", "flagship_sample",
+           "multi_flagship_sample", "load_Jij", "round_Jij", "minus_Jij",
+           "Jij_f2p", "energy_Jij"]
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

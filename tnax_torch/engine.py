@@ -23,6 +23,7 @@ import torch
 
 from . import bmps
 from .kernels import marginal as _marginal
+from .kernels.sample import sample_draw
 from .problems import Problem
 
 
@@ -244,6 +245,15 @@ def marginal_probf(lB, drindex, AT, RL, RRsel, lidx, uidx, nvalid, prob,
     T2 = _marginal_T2(AT, RL, RRsel)
     return _marginal.marginal_epilogue(T2, lB, drindex, lidx, uidx, nvalid,
                                        prob, valid)
+
+
+def marginal_draw(lB, drindex, AT, RL, RRsel, lidx, uidx, nvalid, u):
+    """:func:`marginal_step` followed by one inverse-CDF draw per walker,
+    the sampling counterpart of :func:`marginal_probf`. u (B, M) uniforms
+    in [0, 1). Returns (indc (B, M) int32, mPn (B, M)). Everything after
+    the GEMMs is kernel K4 on CUDA."""
+    T2 = _marginal_T2(AT, RL, RRsel)
+    return sample_draw(T2, lB, drindex, lidx, uidx, nvalid, u)
 
 
 def rl_update(RL, AT, didx):

@@ -1,7 +1,8 @@
-"""Device-resident beam search and the flagship ground-state pipeline,
-for one instance or a fleet.
+"""Device-resident beam search, Gibbs sampling, and the flagship
+pipelines around them, for one instance or a fleet.
 
-Counterpart of the single-device ``topk`` path of ``tnax/parallel.py``.
+Counterpart of the single-device ``topk`` path and the fused samplers of
+``tnax/parallel.py``.
 tnax vmaps one program over a fleet of instances; here every function
 carries a written-out leading instance axis B, and the single search is
 the fleet of one. One beam step per lattice site and per instance, all
@@ -11,6 +12,12 @@ merge of candidates that share a boundary-index vector (kernel K2 groups
 them), the top-M groups with exact int64 degeneracy sums, and the
 left-environment update. ``lax.scan`` over sites and rows becomes Python
 loops; nothing in the per-site loop reads a device value on the host.
+
+Sampling (:func:`flagship_sample`, :func:`multi_flagship_sample`) shares
+the pipeline's first three stages with the search and then draws M
+walkers per instance site by site (kernel K4 for the draw). tnax draws
+with ``jax.random`` inside its scan; here each instance's uniforms of the
+pass are drawn up front, or injected by the caller.
 
 Energies: tnax accumulates the beam energies in the compute dtype (f32 on
 the TPU, which lacks f64). Here the raw energy tables and the beam
@@ -336,42 +343,108 @@ class _StageClock:
         self.t = now
 
 
-def _flagship_body(Es, Esl, Esu, dmap, rmap, X0, betas, ndall, max_scale,
-                   EsR, EslR, EsuR, nvalid, cols, beta, *, M, Nx, bits,
-                   min_dEng, log2_cutoff, cand, Dmax, tolS, tolV,
-                   max_sweeps, lh, lv, pre_Dmax, pre_sweeps, rsvd=True,
-                   omega=None, stage_times=None):
-    """The flagship pipeline of B instances at once: balancing beta
-    ladder (gauges), gauged Boltzmann and traced row tensors at the target
-    beta, the top boundary-MPS stacks, and the full beam search. Every
-    tensor argument carries the leading instance axis (tnax vmaps this
-    body over the fleet, parallel.py:1072-1076); one instance is B = 1.
+def _fleet_tables(solvers, pre_steps, max_scale):
+    """Check that ``solvers`` form a fleet and stack what the pipeline
+    takes into device tensors with a leading instance axis.
 
-    The ladder always zips up with the sketch, as tnax's flagship does
-    (its ladder reads the ambient default); ``rsvd`` sets the main stack.
-    ``stage_times``, if a dict, receives the seconds of the four stages
-    (ladder, peps, boundary, search), each ended by a synchronize.
-    Returns (beam, aux).
+    The instances must share (Ny, Nx, Np, lh, lv), beta, device and dtype
+    (ValueError otherwise). Returns a dict of the dims, the device and
+    dtype, the stacked tables of the ladder and the PEPS rows, the
+    ladder's betas and max_scale, nvalid (B, Ny, Nx) and the host list
+    cols (Ny, Nx) of snake-order columns.
     """
-    clock = _StageClock(stage_times, Es.device)
-    X, _ = pre._ladder_program(Es, Esl, Esu, dmap, rmap, X0, betas, ndall,
-                               max_scale, Dmax=pre_Dmax, tolS=tolS,
+    if not solvers:
+        raise ValueError("a fleet needs at least one solver")
+    ins0 = solvers[0]
+    grids = [engine.pad_grid(ins.problem) for ins in solvers]
+    shape = lambda g: (g.Ny, g.Nx, g.Np, g.lh, g.lv)   # noqa: E731
+    for ins, g in zip(solvers, grids):
+        if shape(g) != shape(grids[0]):
+            raise ValueError(f"fleet instances must share (Ny, Nx, Np, lh, "
+                             f"lv): {shape(g)} != {shape(grids[0])}")
+        if ins.beta != ins0.beta:
+            raise ValueError(f"fleet instances share one beta: {ins.beta} "
+                             f"!= {ins0.beta}")
+        if (ins.device, ins.dtype) != (ins0.device, ins0.dtype):
+            raise ValueError(f"fleet instances share one device and dtype: "
+                             f"{ins.device} {ins.dtype} != {ins0.device} "
+                             f"{ins0.dtype}")
+    dtype, dev = ins0.dtype, ins0.device
+    Ny, Nx, _, lh, lv = shape(grids[0])
+    B = len(solvers)
+
+    def fleet(arrays, dt=dtype):
+        """Stack one host array per instance into a device tensor."""
+        return torch.as_tensor(np.stack(arrays), device=dev).to(dt)
+
+    return dict(
+        B=B, Ny=Ny, Nx=Nx, lh=lh, lv=lv, dtype=dtype, device=dev,
+        Es=fleet([g.Es for g in grids]), Esl=fleet([g.Esl for g in grids]),
+        Esu=fleet([g.Esu for g in grids]),
+        dmap=fleet([g.dmap for g in grids], torch.int32),
+        rmap=fleet([g.rmap for g in grids], torch.int32),
+        X0={k: fleet([v] * B)
+            for k, v in engine.identity_gauges(grids[0]).items()},
+        ndall=fleet([ins.problem.ld[: Ny - 1] for ins in solvers],
+                    torch.int32),
+        nvalid=fleet([g.nstates for g in grids], torch.int32),
+        betas=[ins0.beta * 2.0 ** (nn - pre_steps)
+               for nn in range(pre_steps)],
+        max_scale=float(2.0 ** np.floor(np.log2(np.sqrt(max_scale)))),
+        beta=float(ins0.beta),
+        cols=(np.arange(Ny)[:, None] * Nx
+              + np.arange(Nx)[None, :]).tolist())
+
+
+def _boundary_stages(f, clock, *, Dmax, tolS, tolV, max_sweeps, pre_Dmax,
+                     pre_sweeps, rsvd, omega):
+    """Stages 1-3 of the flagship pipelines of B instances (the fleet
+    ``f`` of :func:`_fleet_tables`): the balancing beta ladder (gauges),
+    the gauged Boltzmann and traced row tensors at the target beta, and
+    the top boundary-MPS stacks. The ladder always zips up with the
+    sketch, as tnax's flagship does (its ladder reads the ambient
+    default); ``rsvd`` sets the main stack. Returns (lB, drindex, Wt,
+    rhoT)."""
+    lh, lv = f["lh"], f["lv"]
+    X, _ = pre._ladder_program(f["Es"], f["Esl"], f["Esu"], f["dmap"],
+                               f["rmap"], f["X0"], f["betas"], f["ndall"],
+                               f["max_scale"], Dmax=pre_Dmax, tolS=tolS,
                                tolV=tolV, max_sweeps=pre_sweeps, lh=lh,
                                lv=lv, omega=omega)
     clock.lap("ladder")
-    lB, Wt = engine.peps_rows(Es, Esl, Esu, dmap, rmap, X["Xl"], X["Xr"],
-                              X["Xu"], X["Xd"], beta, lh=lh, lv=lv)
-    B, Ny = Wt.shape[:2]
-    drindex = dmap.long() * lh + rmap.long()
-    grid_in = dict(lB=lB, drindex=drindex, Es=EsR, Esl=EslR, Esu=EsuR,
-                   dmap=dmap, rmap=rmap, nvalid=nvalid, cols=cols)
-    beam0 = _initial_beam(B, M, Dmax, Nx, Ny, Es.dtype, Es.device)
+    lB, Wt = engine.peps_rows(f["Es"], f["Esl"], f["Esu"], f["dmap"],
+                              f["rmap"], X["Xl"], X["Xr"], X["Xu"], X["Xd"],
+                              f["beta"], lh=lh, lv=lv)
+    drindex = f["dmap"].long() * lh + f["rmap"].long()
     clock.lap("peps")
     rhoT = engine.build_rhoT(Wt, Dmax=Dmax, tolS=tolS, tolV=tolV,
                              max_sweeps=max_sweeps, rsvd=rsvd,
                              omega=omega)[0]
     clock.lap("boundary")
-    beam, aux = full_search_scan(beam0, grid_in, rhoT, Wt, M=M, Nx=Nx,
+    return lB, drindex, Wt, rhoT
+
+
+def _flagship_body(f, EsR, EslR, EsuR, *, M, bits, min_dEng, log2_cutoff,
+                   cand, Dmax, tolS, tolV, max_sweeps, pre_Dmax, pre_sweeps,
+                   rsvd=True, omega=None, stage_times=None):
+    """The flagship search pipeline of B instances at once: the stages of
+    :func:`_boundary_stages`, then the full beam search. Every tensor
+    carries the leading instance axis (tnax vmaps this body over the
+    fleet, parallel.py:1072-1076); one instance is B = 1. EsR, EslR, EsuR
+    are the raw float64 energy tables (B, Ny, Nx, ...). ``stage_times``,
+    if a dict, receives the seconds of the four stages (ladder, peps,
+    boundary, search), each ended by a synchronize. Returns (beam, aux).
+    """
+    clock = _StageClock(stage_times, f["device"])
+    lB, drindex, Wt, rhoT = _boundary_stages(
+        f, clock, Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
+        pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps, rsvd=rsvd, omega=omega)
+    grid_in = dict(lB=lB, drindex=drindex, Es=EsR, Esl=EslR, Esu=EsuR,
+                   dmap=f["dmap"], rmap=f["rmap"], nvalid=f["nvalid"],
+                   cols=f["cols"])
+    beam0 = _initial_beam(f["B"], M, Dmax, f["Nx"], f["Ny"], f["dtype"],
+                          f["device"])
+    beam, aux = full_search_scan(beam0, grid_in, rhoT, Wt, M=M, Nx=f["Nx"],
                                  bits=bits, min_dEng=min_dEng,
                                  log2_cutoff=log2_cutoff, cand=cand)
     clock.lap("search")
@@ -403,53 +476,20 @@ def multi_flagship_search_gs(solvers, M=2 ** 10, relative_P_cutoff=1e-6,
     discarded_probability, merge_overflow, count_max) per instance, as
     tnax does; ``energy`` is the beam's float64 energy.
     """
-    if not solvers:
-        raise ValueError("multi_flagship_search_gs needs at least one solver")
-    ins0 = solvers[0]
-    grids = [engine.pad_grid(ins.problem) for ins in solvers]
-    shape = lambda g: (g.Ny, g.Nx, g.Np, g.lh, g.lv)   # noqa: E731
-    for ins, g in zip(solvers, grids):
-        if shape(g) != shape(grids[0]):
-            raise ValueError(f"fleet instances must share (Ny, Nx, Np, lh, "
-                             f"lv): {shape(g)} != {shape(grids[0])}")
-        if ins.beta != ins0.beta:
-            raise ValueError(f"fleet instances share one beta: {ins.beta} "
-                             f"!= {ins0.beta}")
-        if (ins.device, ins.dtype) != (ins0.device, ins0.dtype):
-            raise ValueError(f"fleet instances share one device and dtype: "
-                             f"{ins.device} {ins.dtype} != {ins0.device} "
-                             f"{ins0.dtype}")
-    dtype, dev = ins0.dtype, ins0.device
-    Ny, Nx, _, lh, lv = shape(grids[0])
-    bits = max(1, int(np.ceil(np.log2(max(lh, lv)))))
+    f = _fleet_tables(solvers, pre_steps, max_scale)
+    bits = max(1, int(np.ceil(np.log2(max(f["lh"], f["lv"])))))
     log2_cutoff = float(np.log2(relative_P_cutoff)) \
         if relative_P_cutoff > 0 else NEG
     cand = None if cand_factor is None else int(cand_factor) * M
-    betas = [ins0.beta * 2.0 ** (nn - pre_steps) for nn in range(pre_steps)]
-    ms = float(2.0 ** np.floor(np.log2(np.sqrt(max_scale))))
-
-    def fleet(arrays, dt=dtype):
-        """Stack one host array per instance into a device tensor."""
-        return torch.as_tensor(np.stack(arrays), device=dev).to(dt)
-
-    X0 = {k: fleet([v] * len(grids))
-          for k, v in engine.identity_gauges(grids[0]).items()}
-    ndall = fleet([ins.problem.ld[: Ny - 1] for ins in solvers], torch.int32)
     rows = [_padded_energy_rows_problem(ins.problem) for ins in solvers]
-    EsR, EslR, EsuR = (fleet([r[i] for r in rows], torch.float64)
+    EsR, EslR, EsuR = (torch.as_tensor(np.stack([r[i] for r in rows]),
+                                       device=f["device"])
                        for i in range(3))
-    cols = (np.arange(Ny)[:, None] * Nx + np.arange(Nx)[None, :]).tolist()
     beam, aux = _flagship_body(
-        fleet([g.Es for g in grids]), fleet([g.Esl for g in grids]),
-        fleet([g.Esu for g in grids]),
-        fleet([g.dmap for g in grids], torch.int32),
-        fleet([g.rmap for g in grids], torch.int32), X0, betas, ndall, ms,
-        EsR, EslR, EsuR, fleet([g.nstates for g in grids], torch.int32),
-        cols, float(ins0.beta), M=M, Nx=Nx, bits=bits, min_dEng=min_dEng,
+        f, EsR, EslR, EsuR, M=M, bits=bits, min_dEng=min_dEng,
         log2_cutoff=log2_cutoff, cand=cand, Dmax=Dmax, tolS=tolS, tolV=tolV,
-        max_sweeps=max_sweeps, lh=lh, lv=lv, pre_Dmax=pre_Dmax,
-        pre_sweeps=pre_sweeps, rsvd=zipup_rsvd, omega=omega,
-        stage_times=stage_times)
+        max_sweeps=max_sweeps, pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps,
+        rsvd=zipup_rsvd, omega=omega, stage_times=stage_times)
     # one pull of the final beams and diagnostics
     host = {k: beam[k].cpu().numpy()
             for k in ("valid", "Eng", "prob", "deg", "states")}
@@ -488,6 +528,181 @@ def flagship_search_gs(ins, M=2 ** 10, relative_P_cutoff=1e-6,
         cand_factor=cand_factor, pre_steps=pre_steps, pre_Dmax=pre_Dmax,
         pre_sweeps=pre_sweeps, max_scale=max_scale, zipup_rsvd=zipup_rsvd,
         omega=omega, stage_times=stage_times)[0]
+
+
+# ---------------------------------------------------------------------------
+# Gibbs sampling
+# ---------------------------------------------------------------------------
+
+def sample_rows(beam, row, u_row, *, M, Nx):
+    """One lattice row of Gibbs sampling for the M walkers of each of B
+    instances (tnax parallel.py:1283-1313, with the instance axis): per
+    site the conditional marginals and one inverse-CDF draw per walker
+    (kernel K4 after the GEMMs), the drawn state and its boundary indices
+    written into the walker, and the left-environment update. Walkers
+    never reorder, so the row-start right environments apply directly.
+
+    beam: dict of RL (B, M, D), vind (B, M, Nx+1) int32, states (B, M, L)
+      int32.
+    row: dict of per-site stacks lB (B, Nx, Np, lh, lv), drindex
+      (B, Nx, Np), AT (B, Nx, D, lv, D), RRs (B, Nx, M, D, lh), dmap/rmap
+      (B, Nx, Np), nvalid (B, Nx) on the device, and the host list cols
+      (Nx,).
+    u_row: (B, Nx, M) uniforms in [0, 1) in the compute dtype.
+
+    Returns (beam', mq (B,)): mq is each instance's least mPn over the
+    row's sites and walkers. Nothing is read back to the host.
+    """
+    RL = beam["RL"]
+    vind, states = beam["vind"].clone(), beam["states"].clone()
+    mqs = []
+    for nx in range(Nx):
+        AT = row["AT"][:, nx]
+        indc, mPn = engine.marginal_draw(
+            row["lB"][:, nx], row["drindex"][:, nx], AT, RL,
+            row["RRs"][:, nx], vind[:, :, nx], vind[:, :, nx + 1],
+            row["nvalid"][:, nx], u_row[:, nx])
+        ind = indc.long()
+        states[:, :, row["cols"][nx]] = indc.to(states.dtype)
+        vind[:, :, nx] = row["dmap"][:, nx].gather(1, ind).to(vind.dtype)
+        vind[:, :, nx + 1] = row["rmap"][:, nx].gather(1, ind).to(vind.dtype)
+        RL = engine.rl_update(RL, AT, vind[:, :, nx])
+        mqs.append(mPn.amin(dim=1))
+    vind = torch.cat([torch.zeros_like(vind[:, :, :1]), vind[:, :, :-1]],
+                     dim=2)
+    return dict(RL=RL, vind=vind, states=states), \
+        torch.stack(mqs, 1).amin(1)
+
+
+def full_sample_scan(beam0, grid_in, rhoT, Wt, u, *, M, Nx):
+    """The whole Gibbs sampling pass of B instances (tnax
+    parallel.py:1352-1371): per lattice row, unit left environments, the
+    right environments of every walker, then :func:`sample_rows`.
+
+    grid_in: dict of (B, Ny, ...) stacks lB, drindex, dmap, rmap, nvalid
+    (B, Ny, Nx) on the device, and the host list cols (Ny, Nx). rhoT
+    (B, Ny+1, Nx, D, lv, D), Wt (B, Ny, Nx, lh, lv, lh, lv), u
+    (B, Ny, Nx, M). Returns (beam, mq (B,)).
+    """
+    B, D = rhoT.shape[0], rhoT.shape[3]
+    Ny = Wt.shape[1]
+    beam, mqs = dict(beam0), []
+    for ny in range(Ny):
+        beam["RL"] = _unit_rows(B, M, D, rhoT)
+        RRs = engine.row_right_envs(rhoT[:, ny + 1], Wt[:, ny],
+                                    beam["vind"][:, :, 1:])
+        row = {k: v[ny] if k == "cols" else v[:, ny]
+               for k, v in grid_in.items()}
+        row.update(AT=rhoT[:, ny + 1], RRs=RRs)
+        beam, mq = sample_rows(beam, row, u[:, ny], M=M, Nx=Nx)
+        mqs.append(mq)
+    return beam, torch.stack(mqs, 1).amin(1)
+
+
+def _flagship_sample_body(f, u, *, M, Dmax, tolS, tolV, max_sweeps,
+                          pre_Dmax, pre_sweeps, rsvd=True, omega=None,
+                          stage_times=None):
+    """The Gibbs sampling pipeline of B instances at once (tnax
+    parallel.py:1438-1467, vmapped there): the stages of
+    :func:`_boundary_stages`, then the M-walker sampling pass on the
+    uniforms u (B, Ny, Nx, M). ``stage_times``, if a dict, receives the
+    seconds of the four stages (ladder, peps, boundary, sample). Returns
+    (states (B, M, Ny*Nx), mq (B,))."""
+    clock = _StageClock(stage_times, f["device"])
+    lB, drindex, Wt, rhoT = _boundary_stages(
+        f, clock, Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
+        pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps, rsvd=rsvd, omega=omega)
+    B, Ny, Nx = f["B"], f["Ny"], f["Nx"]
+    grid_in = dict(lB=lB, drindex=drindex, dmap=f["dmap"], rmap=f["rmap"],
+                   nvalid=f["nvalid"], cols=f["cols"])
+    dev = f["device"]
+    beam0 = dict(RL=_unit_rows(B, M, Dmax, rhoT),
+                 vind=torch.zeros((B, M, Nx + 1), dtype=torch.int32,
+                                  device=dev),
+                 states=torch.zeros((B, M, Nx * Ny), dtype=torch.int32,
+                                    device=dev))
+    beam, mq = full_sample_scan(beam0, grid_in, rhoT, Wt, u, M=M, Nx=Nx)
+    clock.lap("sample")
+    return beam["states"], mq
+
+
+def instance_uniforms(seed, b, shape, dtype, device):
+    """The uniforms of instance b of a fleet sampled with ``seed``: one
+    draw of ``shape`` in [0, 1) from a generator on ``device`` seeded from
+    (seed, b) alone, so an instance's samples do not depend on the fleet
+    it runs in."""
+    state = np.random.SeedSequence([seed, b]).generate_state(1, np.uint64)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(state[0]) >> 1)
+    return torch.rand(shape, generator=gen, dtype=dtype, device=device)
+
+
+def multi_flagship_sample(solvers, M=2 ** 10, Dmax=32, tolS=1e-15,
+                          tolV=1e-10, max_sweeps=20, seed=0, pre_steps=1,
+                          pre_Dmax=8, pre_sweeps=20, max_scale=1024,
+                          zipup_rsvd=True, omega=None, uniforms=None,
+                          stage_times=None):
+    """Fleet Gibbs sampling: the sampling pipeline (balancing ladder,
+    boundary build, M-walker sampling pass) run once over a batch of
+    same-shape Solver instances, every stage with a leading instance axis
+    (tnax's ``multi_flagship_sample`` without a mesh; the reference's
+    production pattern of e02).
+
+    The instances must share (Ny, Nx, Np, lh, lv), beta, device and dtype
+    (ValueError otherwise). Random numbers: with ``uniforms=None``
+    instance b draws its (Ny, Nx, M) uniforms of the pass at the start
+    from its own generator on the device, seeded from (seed, b) alone
+    (:func:`instance_uniforms`); ``uniforms`` (B, Ny, Nx, M) in [0, 1)
+    injects them instead, walker m at site (ny, nx) using
+    ``uniforms[b, ny, nx, m]``. ``omega`` is the zip-up sketch (see
+    :func:`multi_flagship_search_gs`). ``stage_times``, if a dict,
+    receives the seconds of the four stages (ladder, peps, boundary,
+    sample) of the whole batch.
+
+    Returns a list with one dict(states (M, Ny*Nx) int32 block states,
+    energy (M,) exact float64 energies replayed on the host,
+    negative_probability) per instance, as tnax does.
+    """
+    f = _fleet_tables(solvers, pre_steps, max_scale)
+    dtype, dev = f["dtype"], f["device"]
+    shape = (f["B"], f["Ny"], f["Nx"], M)
+    if uniforms is None:
+        u = torch.stack([instance_uniforms(seed, b, shape[1:], dtype, dev)
+                         for b in range(f["B"])])
+    else:
+        u = torch.as_tensor(uniforms, device=dev).to(dtype)
+        if tuple(u.shape) != shape:
+            raise ValueError(f"uniforms must have shape {shape} "
+                             f"(B, Ny, Nx, M), got {tuple(u.shape)}")
+    states, mq = _flagship_sample_body(
+        f, u, M=M, Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
+        pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps, rsvd=zipup_rsvd,
+        omega=omega, stage_times=stage_times)
+    states, mq = states.cpu().numpy(), mq.cpu().numpy()   # one pull
+    return [dict(states=states[b],
+                 energy=exact_energies_problem(ins.problem, states[b]),
+                 negative_probability=min(0.0, float(mq[b])))
+            for b, ins in enumerate(solvers)]
+
+
+def flagship_sample(ins, M=2 ** 10, Dmax=32, tolS=1e-15, tolV=1e-10,
+                    max_sweeps=20, seed=0, pre_steps=1, pre_Dmax=8,
+                    pre_sweeps=20, max_scale=1024, zipup_rsvd=True,
+                    omega=None, uniforms=None, stage_times=None):
+    """Gibbs sampling on ``ins.device`` in ``ins.dtype``: balancing
+    preconditioner ladder, boundary build and the M-walker sampling pass
+    (tnax's ``flagship_sample``). It is the fleet of one:
+    :func:`multi_flagship_sample` with B = 1, so ``seed`` gives the
+    uniforms of instance 0 of a fleet, and ``uniforms`` (Ny, Nx, M)
+    injects them. Returns dict(states, energy, negative_probability).
+    """
+    if uniforms is not None:
+        uniforms = torch.as_tensor(uniforms)[None]
+    return multi_flagship_sample(
+        [ins], M=M, Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
+        seed=seed, pre_steps=pre_steps, pre_Dmax=pre_Dmax,
+        pre_sweeps=pre_sweeps, max_scale=max_scale, zipup_rsvd=zipup_rsvd,
+        omega=omega, uniforms=uniforms, stage_times=stage_times)[0]
 
 
 def _padded_energy_rows_problem(problem):

@@ -156,9 +156,11 @@ def _ladder_program(Es, Esl, Esu, dmap, rmap, X0, betas, ndall, max_scale,
     sequence of floats, ``ndall`` (B, Ny-1, Nx) the valid vertical leg
     dims. Returns (X, overlaps (B, R, 4, Ny-1, Nx)).
     """
-    B, Ny = X0["Xd"].shape[:2]
+    B, Ny, Nx = X0["Xd"].shape[:3]
     Ni = Ny - 1
     X = dict(X0)
+    if Ni == 0:   # one row: no interface to balance, the gauges stay
+        return X, X0["Xd"].new_zeros((B, len(betas), 4, 0, Nx))
     overs = []
 
     def interfaces(rho):

@@ -2,8 +2,11 @@
 
 The Ising constructor (with an explicit ``device`` and ``dtype``), the
 cluster order, the found ``states`` and their decoding to spin
-bit-strings. Rotations, noise, RMF, the host search paths, sampling, the
-spectrum and save/load are not ported yet.
+bit-strings. Rotations, noise, RMF, the host search paths, the spectrum
+and save/load are not ported yet. Gibbs sampling is reachable through
+``parallel.flagship_sample`` and ``parallel.multi_flagship_sample``;
+``Solver.gibbs_sampling`` waits for the contraction context and the host
+path.
 """
 
 from __future__ import annotations

@@ -22,6 +22,16 @@ fleet instances use the fleet's operating point:
 
     python tools/make_chimera_instance.py --L 512 --seed 1 \
         --out tests/data/chimera512_synth_s1.txt --oracle --cand-factor 2
+
+``--sample-oracle`` runs tnax's ``flagship_sample`` instead, in float64 on
+the CPU at the e02 sampling point (M=1024 walkers, D=48, pre_steps=2,
+beta=3, seed 0, the zip-up sketch on), and writes
+``<out stem>_sample_oracle.json``: the mean, standard deviation and
+minimum of the sampled energies, their number N, the negative
+probability and the command:
+
+    python tools/make_chimera_instance.py --L 512 --seed 1 \
+        --out tests/data/chimera512_synth_s1.txt --sample-oracle
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import numpy as np
 
 SIDES = {128: 4, 512: 8, 1152: 12, 2048: 16}
 M, DMAX, CUTOFF = 1024, 32, 1e-8   # the flagship operating point
+SAMPLE_DMAX, SAMPLE_PRE_STEPS = 48, 2   # the e02 sampling point
 
 
 def chimera_couplings(n: int, seed: int):
@@ -69,18 +80,30 @@ def write_instance(path: str, n: int, seed: int) -> None:
             f.write(f"{i + 1} {j + 1} {v!r}\n")
 
 
-def tnax_oracle(path: str, n: int, cand_factor: int = 8) -> dict:
-    """tnax flagship search on the instance, float64 on the CPU."""
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _tnax_solver(path: str, n: int):
+    """tnax (float64 on the CPU) and its Solver on the instance."""
     os.environ.setdefault("TNAX_PLATFORM", "cpu")
     os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ.setdefault("TNAX_X64", "1")
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    sys.path.insert(0, root)
+    sys.path.insert(0, ROOT)
     import tnax
-    from tnax import parallel
 
     J = tnax.round_Jij(tnax.Jij_f2p(tnax.load_Jij(path)), 1 / 75)
-    ins = tnax.Solver(mode="Ising", Nx=n, Ny=n, Nc=8, J=J, beta=3)
+    return tnax, J, tnax.Solver(mode="Ising", Nx=n, Ny=n, Nc=8, J=J, beta=3)
+
+
+def _commit() -> str:
+    return subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
+                          capture_output=True, text=True).stdout.strip()
+
+
+def tnax_oracle(path: str, n: int, cand_factor: int = 8) -> dict:
+    """tnax flagship search on the instance, float64 on the CPU."""
+    tnax, J, ins = _tnax_solver(path, n)
+    from tnax import parallel
     t0 = time.time()
     res = parallel.flagship_search_gs(ins, M=M, relative_P_cutoff=CUTOFF,
                                       Dmax=DMAX, cand_factor=cand_factor,
@@ -88,8 +111,6 @@ def tnax_oracle(path: str, n: int, cand_factor: int = 8) -> dict:
     seconds = time.time() - t0
     ins.states = np.asarray(res["states"])[None, :][:, ins.order]
     energy = float(tnax.energy_Jij(J, ins.binary_states())[0])
-    commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=root,
-                            capture_output=True, text=True).stdout.strip()
     return dict(
         instance=os.path.basename(path), L=8 * n * n, Nx=n, Ny=n, Nc=8,
         beta=3, M=M, Dmax=DMAX, relative_P_cutoff=CUTOFF,
@@ -99,7 +120,32 @@ def tnax_oracle(path: str, n: int, cand_factor: int = 8) -> dict:
         states=[int(s) for s in np.asarray(res["states"])],
         merge_overflow=int(res["merge_overflow"]),
         count_max=int(res["count_max"]),
-        cold_seconds=round(seconds, 2), tnax_commit=commit)
+        cold_seconds=round(seconds, 2), tnax_commit=_commit())
+
+
+def tnax_sample_oracle(path: str, n: int, command: str) -> dict:
+    """tnax flagship Gibbs sampling on the instance, float64 on the CPU;
+    every sampled energy is checked against ``energy_Jij`` of its state."""
+    os.environ["TNAX_ZIPUP_RSVD"] = "1"
+    tnax, J, ins = _tnax_solver(path, n)
+    from tnax import parallel
+    t0 = time.time()
+    res = parallel.flagship_sample(ins, M=M, Dmax=SAMPLE_DMAX, seed=0,
+                                   pre_steps=SAMPLE_PRE_STEPS,
+                                   zipup_rsvd=True)
+    seconds = time.time() - t0
+    E = np.asarray(res["energy"], dtype=np.float64)
+    ins.states = np.asarray(res["states"])[:, ins.order]
+    assert np.allclose(E, tnax.energy_Jij(J, ins.binary_states()),
+                       atol=1e-9), "sampled energies disagree with energy_Jij"
+    return dict(
+        instance=os.path.basename(path), L=8 * n * n, Nx=n, Ny=n, Nc=8,
+        beta=3, M=M, Dmax=SAMPLE_DMAX, pre_steps=SAMPLE_PRE_STEPS, seed=0,
+        zipup_rsvd=True, dtype="float64", device="cpu", N=int(E.size),
+        mean=float(E.mean()), std=float(E.std(ddof=1)), min=float(E.min()),
+        negative_probability=float(res["negative_probability"]),
+        cold_seconds=round(seconds, 2), command=command,
+        tnax_commit=_commit())
 
 
 def main():
@@ -108,11 +154,23 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", required=True)
     ap.add_argument("--oracle", action="store_true")
+    ap.add_argument("--sample-oracle", action="store_true",
+                    help="tnax Gibbs sampling at the e02 point instead")
     ap.add_argument("--cand-factor", type=int, default=8,
                     help="merge cap of the oracle search, in units of M")
     args = ap.parse_args()
     n = SIDES[args.L]
     write_instance(args.out, n, args.seed)
+    if args.sample_oracle:
+        command = "python tools/make_chimera_instance.py " + " ".join(
+            sys.argv[1:])
+        out = tnax_sample_oracle(args.out, n, command)
+        with open(os.path.splitext(args.out)[0] + "_sample_oracle.json",
+                  "w") as f:
+            json.dump(out, f, indent=1)
+            f.write("\n")
+        print(json.dumps({k: out[k] for k in ("mean", "std", "min", "N",
+                                              "cold_seconds")}))
     if args.oracle:
         out = tnax_oracle(args.out, n, args.cand_factor)
         with open(os.path.splitext(args.out)[0] + "_oracle.json", "w") as f:

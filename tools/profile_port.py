@@ -1,6 +1,7 @@
-"""Profile one warm flagship search of the port (tnax_torch) on a CUDA card.
+"""Profile one warm flagship search or sampling pass of the port
+(tnax_torch) on a CUDA card.
 
-    python tools/profile_port.py [--dtype float32] [--fleet] \
+    python tools/profile_port.py [--dtype float32] [--fleet | --sample] \
         [--out chiprun_out/profile_port.txt]
 
 Runs the flagship search on the committed synthetic chimera-2048 instance
@@ -9,7 +10,10 @@ warm without the profiler (its wall-clock), then once warm under
 ``torch.profiler`` with CPU and CUDA activities. With
 ``--fleet`` the search is one fleet batch instead: the 8 committed
 chimera-512 instances through ``multi_flagship_search_gs`` at their
-oracles' operating point (cand_factor=2). Writes the stage times, the
+oracles' operating point (cand_factor=2). With ``--sample`` it is one
+Gibbs sampling pass of the same 8 instances through
+``multi_flagship_sample`` at the e02 point (128 walkers each, D=48,
+pre_steps=2, beta=3, seed 1). Writes the stage times, the
 wall time, the summed device-kernel time and the device's idle share,
 the kernel launches, and the top operators by device time and by host
 time, to ``--out``; prints the summary lines. Needs a CUDA card.
@@ -31,8 +35,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "float64"))
-    ap.add_argument("--fleet", action="store_true",
-                    help="profile one batch of the 8 chimera-512 instances")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--fleet", action="store_true",
+                      help="profile one batch of the 8 chimera-512 "
+                      "instances")
+    mode.add_argument("--sample", action="store_true",
+                      help="profile one sampling pass of the 8 chimera-512 "
+                      "instances")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "profile_port.txt"))
     args = ap.parse_args()
@@ -46,7 +55,7 @@ def main():
 
     data = os.path.join(ROOT, "tests", "data")
     bases = [os.path.join(data, f"chimera512_synth_s{s}") for s in
-             range(1, 9)] if args.fleet else \
+             range(1, 9)] if args.fleet or args.sample else \
         [os.path.join(data, "chimera2048_synth_s0")]
     with open(bases[0] + "_oracle.json") as f:
         oracle = json.load(f)
@@ -58,6 +67,10 @@ def main():
         solvers = [tt.Solver(mode="Ising", Nx=oracle["Nx"], Ny=oracle["Ny"],
                              Nc=oracle["Nc"], J=J, beta=oracle["beta"],
                              device="cuda", dtype=dtype) for J in Js]
+        if args.sample:
+            return tt.multi_flagship_sample(solvers, M=128, Dmax=48,
+                                            pre_steps=2, seed=1,
+                                            stage_times=stages)
         return tt.parallel.multi_flagship_search_gs(
             solvers, M=oracle["M"],
             relative_P_cutoff=oracle["relative_P_cutoff"],
@@ -88,8 +101,9 @@ def main():
                          text=True).stdout.strip()
     lines = [
         f"device {torch.cuda.get_device_name(0)} ({smi}); "
-        f"{len(Js)} x L{oracle['L']} {args.dtype} M={oracle['M']} "
-        f"D={oracle['Dmax']}",
+        f"{len(Js)} x L{oracle['L']} {args.dtype} "
+        + ("sampling M=128 D=48" if args.sample else
+           f"M={oracle['M']} D={oracle['Dmax']}"),
         f"wall {wall:.3f} s (profiled); stages "
         + " ".join(f"{k}={v:.3f}" for k, v in stages.items()),
         f"device kernel time {device_us / 1e6:.3f} s; device idle share "
@@ -97,8 +111,10 @@ def main():
         f"{launches} kernel launches",
         f"warm wall without the profiler {wall_plain:.3f} s (idle share "
         f"{1 - device_us / 1e6 / wall_plain:.3f} against it)",
-        "energies " + " ".join(f"{r['energy']:.6f}" for r in rs)
-        + "; degeneracies " + " ".join(str(r["degeneracy"]) for r in rs),
+        ("mean sampled energies " + " ".join(
+            f"{r['energy'].mean():.6f}" for r in rs)) if args.sample else
+        ("energies " + " ".join(f"{r['energy']:.6f}" for r in rs)
+         + "; degeneracies " + " ".join(str(r["degeneracy"]) for r in rs)),
         "",
         "top operators by device time:",
         events.table(sort_by="self_device_time_total", row_limit=30),
