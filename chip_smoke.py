@@ -4,19 +4,30 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with one CUDA card. It
-  1. prints the card and its power limit and builds the three kernels;
+  1. prints the card and its power limit and builds the four kernels, one
+     nvcc per source, all at once;
   2. compares each kernel with its plain PyTorch version on the card, in
      float32 and float64, at the single search's shapes (B = 1) and the
-     fleet's (B = 8 instances in one launch), and times both (median of
-     20 launches, CUDA events) beside the least time the card could take
-     (``bound_ms``) and the time of one launch of a one-element kernel;
+     fleet's (B = 8 instances in one launch), K2 also at the tiled sizes up
+     to the full expansion (1 x 65,536, 1 x 262,144, 8 x 65,536), and
+     prints per kernel and shape the time of one wrapper call and of the
+     plain version (median of 20 calls, CUDA events), the device time
+     alone (20 calls captured in one CUDA graph, per call), the least time
+     the card could take (``bound_ms``) and the launch floor (one launch
+     of a one-element kernel); for K2 also ``torch.sort(stable=True)`` of
+     the keys, the time of the sort alone;
   3. drives the flagship ground-state search through the public entry
      points (load_Jij -> Solver -> parallel.flagship_search_gs) on the
      committed synthetic chimera-2048 instance at M=1024, D=32, cutoff
-     1e-8: float64 cold and warm, float32 cold and three warm runs, with
-     per-stage times; the launch counters show that every kernel ran, the
-     returned energy is checked against ``energy_Jij`` of the returned
-     state, and the float64 energy against the committed tnax oracle;
+     1e-8: at the default merge cap (cand_factor=8) float64 cold and warm,
+     float32 cold and three warm runs, then the full expansion
+     (cand_factor=None, C = M * Np = 262,144 candidates per site) float64
+     once and float32 cold and three warm, with per-stage times; the
+     launch counters show that every kernel ran (at the full expansion K2
+     and K3 once per site), the returned energy is checked against
+     ``energy_Jij`` of the returned state, the float64 energy against the
+     committed tnax oracle of its cap, and the full expansion for no
+     merge overflow;
   4. drives the fleet (Solver -> parallel.multi_flagship_search_gs) on the
      8 committed chimera-512 instances at M=1024, D=32, cutoff 1e-8,
      cand_factor=2, beta=3: float64 once, float32 cold and three warm,
@@ -46,6 +57,7 @@ before that line is printed. Without a CUDA card it fails.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -57,6 +69,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "tests", "data")
 INSTANCE = os.path.join(DATA, "chimera2048_synth_s0.txt")
 ORACLE = os.path.join(DATA, "chimera2048_synth_s0_oracle.json")
+FULL_ORACLE = os.path.join(DATA, "chimera2048_synth_s0_full_oracle.json")
 FLEET = [os.path.join(DATA, f"chimera512_synth_s{s}") for s in range(1, 9)]
 SAMPLE_ORACLE = os.path.join(DATA, "chimera512_synth_s1_sample_oracle.json")
 # the sampling points: beta=3, D=48, a two-rung ladder; the e02 point
@@ -66,6 +79,11 @@ E02_M, E2048_M = 128, 1024
 FLEET_SEED = 1   # the single e02 run is stream 0 of seed 0
 REPS = 20
 SEARCH_KERNELS = ("gebal", "merge", "marginal_epilogue")
+# K2's checks: (B, C, label) and chimera-2048's key bits,
+# bitlen(M - 1) + 2 * bits + 1 = 10 + 8 + 1
+MERGE_SHAPES = ((1, 8192, "B1"), (8, 2048, "B8"), (1, 65536, "B1_65536"),
+                (1, 262144, "B1_full"), (8, 65536, "B8_65536"))
+KB = 19
 # comparison tolerances of kernel vs plain version, by dtype name
 RTOL = {"float32": 1e-5, "float64": 1e-12}
 # peak rates of one H100 SXM (NVIDIA's data sheet; FP64 outside the tensor
@@ -111,18 +129,22 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def gathered_bytes(T2, lB, drindex, lidx, uidx, nvalid, torch):
+def gathered_bytes(T2, lB, drindex, lidx, uidx, nvalid, torch,
+                   states_last=False):
     """Bytes the marginal tail (K3, K4) must read of its gathered inputs:
     the Np-state Boltzmann column lB[b, :, l, u] once for each distinct
     (l, u) pair of instance b, the valid states' entries of each branch's
-    row of T2, and the indices at the 32-bit width the kernels read."""
-    lv = lB.shape[3]
-    Np = lB.shape[1]
+    row of T2, and the indices at the width the kernel reads. K4 takes
+    lB (B, Np, lh, lv) and 32-bit indices; K3 (``states_last``) takes
+    (B, lh, lv, Np) and the search's 64-bit indices."""
+    Np, lv = (lB.shape[3], lB.shape[2]) if states_last else \
+        (lB.shape[1], lB.shape[3])
+    index_bytes = 8 if states_last else 4
     pairs = sum(int(torch.unique(lidx[b].long() * lv + uidx[b].long()).numel())
                 for b in range(lidx.shape[0]))
     nv = int(nvalid.long().clamp(max=Np).sum())
     return (pairs * Np + nv * lidx.shape[1]) * T2.element_size() \
-        + 4 * (nv + 2 * lidx.numel() + nvalid.numel())
+        + index_bytes * (nv + 2 * lidx.numel() + nvalid.numel())
 
 
 def bound(moved, ops, name):
@@ -134,20 +156,66 @@ def bound(moved, ops, name):
                                        else "operations")
 
 
+def device_ms(fn, torch):
+    """Device time of one call of ``fn`` alone: REPS calls captured in one
+    CUDA graph and replayed back to back, per call (median of 5 replays).
+    The host's work in the wrapper is not in it."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(REPS):
+            fn()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / REPS)
+    del g
+    return statistics.median(times)
+
+
 def compare_and_time(out, key, name, got, want, kernel, plain, moved, ops,
-                     torch, extra_err=()):
-    """Record one kernel case: max abs error, kernel and plain ms, bound."""
+                     torch, extra_err=(), extra=None):
+    """Record one kernel case: max abs error, wrapper, device-only and
+    plain ms, bound."""
     bms, by = bound(moved, ops, name)
     out.setdefault(key[0], {}).setdefault(name, {})[key[1]] = dict(
         max_abs_err=max([max_abs_err(got, want, torch)]
                         + [max_abs_err(a, b, torch) for a, b in extra_err]),
-        ms=median_ms(kernel, torch), plain_ms=median_ms(plain, torch),
-        bound_ms=bms, bound_by=by)
+        ms=median_ms(kernel, torch), device_ms=device_ms(kernel, torch),
+        plain_ms=median_ms(plain, torch), bound_ms=bms, bound_by=by,
+        **(extra or {}))
 
 
-def kernel_checks(tt, torch, dev):
+def merge_case(gen, B, C, dtype, dev, torch):
+    """K2's inputs: B rows of C candidates with keys in [0, 2**KB), about
+    C / 4 groups of random size per row and the largest key in every row;
+    energies in multiples of 1/75 (ties), 10% invalid, int64 degeneracies
+    up to 2**40."""
+    groups = torch.randint(0, 2 ** KB - 1, (B, max(1, C // 4)),
+                           generator=gen)
+    key1 = groups.gather(1, torch.randint(0, groups.shape[1], (B, C),
+                                          generator=gen))
+    key1[:, torch.randint(0, C, (max(1, C // 64),), generator=gen)] = \
+        2 ** KB - 1
+    return (key1.to(dev, torch.int32),
+            (torch.randint(-300, 300, (B, C), generator=gen) / 75.0).to(
+                dev, torch.float64),
+            (-torch.randn((B, C), generator=gen, dtype=torch.float64).abs()
+             * 20).to(dev, dtype),
+            (torch.rand((B, C), generator=gen) < 0.9).to(dev),
+            torch.randint(1, 2 ** 40, (B, C), generator=gen).to(dev))
+
+
+def kernel_checks(tt, torch, dev, floor):
     """Phase 2: each kernel against its plain version on the card, at the
-    single search's shapes (B = 1) and the fleet's (B = 8)."""
+    single search's shapes (B = 1) and the fleet's (B = 8), K2 also up to
+    the full expansion; ``floor`` is the launch floor in ms."""
     from tnax_torch import kernels
     from tnax_torch.parallel import select_groups
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -178,54 +246,55 @@ def kernel_checks(tt, torch, dev):
                 lambda: kernels.gebal_scale_plain(A, nd, 32.0),
                 nbytes(A, nd, got), 6 * 16 * 16 * nmat, torch)
 
-        # K2: C = 8 * 1024 candidates of one instance, and the fleet's
-        # 8 instances of C = 2 * 1024, with repeated keys and energy ties
+        # K2: the main path's C = 8 * 1024 candidates of one instance, the
+        # fleet's 8 instances of C = 2 * 1024, and the tiled sizes up to
+        # the full expansion M * Np = 1024 * 256, with chimera-2048's
+        # kb = 19 key bits (the largest key 2**19 - 1 in every row), about
+        # C / 4 groups of random size, energy ties and 10% invalid
         M = 1024
-        for B, C, label in ((1, 8192, "B1"), (8, 2048, "B8")):
-            key1 = (torch.randint(0, 3000 * C // 8192, (B, C), generator=gen)
-                    << 1).to(dev, torch.int32)
-            valid = (torch.rand((B, C), generator=gen) < 0.9).to(dev)
-            key1 = key1 | (~valid).to(torch.int32)
-            Eng = (torch.randint(-300, 300, (B, C), generator=gen)
-                   / 75.0).to(dev, torch.float64)
-            prob = -rand(B, C).abs() * 20
-            deg = torch.randint(1, 1000, (B, C), generator=gen).to(dev)
-            segs_k = kernels.merge_segments(key1, Eng, prob, valid, deg,
-                                            1e-12)
-            for b in range(B):
-                segs_p = kernels.merge_segments_plain(
-                    key1[b], Eng[b], prob[b], valid[b], deg[b], 1e-12)
-                for i, part in ((0, "perm"), (1, "seg"), (2, "Emin"),
-                                (3, "first_min"), (5, "degeneracy sums")):
-                    check(torch.equal(segs_k[i][b], segs_p[i]),
-                          f"K2 merge {name} {label}: {part} differs in "
-                          f"instance {b}")
-            segs_p = kernels.merge_segments_plain(key1, Eng, prob, valid,
-                                                  deg, 1e-12)
+        for B, C, label in MERGE_SHAPES:
+            args = merge_case(gen, B, C, dtype, dev, torch)
+            key1, valid = args[0], args[3]
+            segs_k = kernels.merge_segments(*args, 1e-12, key_bits=KB)
+            segs_p = kernels.merge_segments_plain(*args, 1e-12)
+            for i, part in ((0, "perm"), (1, "seg"), (2, "Emin"),
+                            (3, "first_min"), (5, "degeneracy sums")):
+                check(torch.equal(segs_k[i], segs_p[i]),
+                      f"K2 merge {name} {label}: {part} differs")
             sel_k = select_groups(*segs_k, valid, M)
             sel_p = select_groups(*segs_p, valid, M)
             for i, part in ((0, "slot"), (1, "rep"), (6, "degeneracy")):
                 check(torch.equal(sel_k[i], sel_p[i]),
                       f"K2 merge {name} {label}: {part} differs")
-            check(torch.allclose(segs_k[4], segs_p[4], rtol=rtol, atol=rtol)
-                  and torch.allclose(sel_k[2], sel_p[2], rtol=rtol,
-                                     atol=rtol),
+            # the kernel adds a group's n near members in another order
+            # than the plain version: two n-term sums of one sign differ by
+            # at most 2 n eps relative, n the largest group
+            n = int(max(torch.bincount(row).max() for row in segs_p[1]))
+            tol = 2 * n * torch.finfo(dtype).eps
+            check(torch.allclose(segs_k[4], segs_p[4], rtol=tol, atol=tol)
+                  and torch.allclose(sel_k[2], sel_p[2], rtol=tol, atol=tol),
                   f"K2 merge {name} {label}: probabilities differ beyond "
-                  f"rtol {rtol}")
+                  f"rtol {tol:.3g} (largest group {n})")
+            again = kernels.merge_segments(*args, 1e-12, key_bits=KB)[4]
+            check(torch.equal(again, segs_k[4]),
+                  f"K2 merge {name} {label}: gprob differs between runs")
             # a comparison sort needs C log2 C comparisons per instance
             compare_and_time(
                 out, ("merge", label), name, segs_k[4], segs_p[4],
-                lambda: kernels.merge_segments(key1, Eng, prob, valid, deg,
-                                               1e-12),
-                lambda: kernels.merge_segments_plain(key1, Eng, prob, valid,
-                                                     deg, 1e-12),
-                nbytes(key1, Eng, prob, valid, deg, *segs_k),
-                B * C * max(1, (C - 1).bit_length()), torch)
+                lambda: kernels.merge_segments(*args, 1e-12, key_bits=KB),
+                lambda: kernels.merge_segments_plain(*args, 1e-12),
+                nbytes(*args, *segs_k), B * C * max(1, (C - 1).bit_length()),
+                torch, extra=dict(
+                    sort_ms=median_ms(lambda: torch.sort(key1, dim=1,
+                                                         stable=True),
+                                      torch), gprob_rtol=tol))
 
         # K3: M = 1024 branches, Np = 256 states, lh = lv = 16, of one
         # instance and of the fleet's 8, whose counts of valid states
-        # differ
+        # differ; the table with the states last and int64 indices, as the
+        # search holds them, and the search's cutoff window
         Np, lh, lv = 256, 16, 16
+        log2_cutoff = float(math.log2(1e-8))
         for nvs, label in (([200], "B1"),
                            ([200, 256, 97, 1, 256, 180, 64, 255], "B8")):
             B = len(nvs)
@@ -240,23 +309,38 @@ def kernel_checks(tt, torch, dev):
             nvalid = torch.tensor(nvs, device=dev)
             probv = -rand(B, M).abs() * 50
             bvalid = (torch.rand((B, M), generator=gen) < 0.8).to(dev)
-            args = (T2, lB, drindex, lidx, uidx, nvalid, probv, bvalid)
-            pf_k, mq_k = kernels.marginal_epilogue(*args)
-            pf_p, mq_p = kernels.marginal_epilogue_plain(*args)
-            check(torch.equal(pf_k <= -1e29, pf_p <= -1e29),
+            args = (T2, kernels.marginal.boltzmann_columns(lB), drindex,
+                    lidx, uidx, nvalid, probv, bvalid, log2_cutoff)
+            out_k = kernels.marginal_epilogue(*args)
+            out_p = kernels.marginal_epilogue_plain(*args)
+            pf_k, mq_k, pmax, mq, mqc = out_k
+            check(torch.equal(pf_k <= -1e29, out_p[0] <= -1e29),
                   f"K3 marginal {name} {label}: NEG pattern differs")
-            check(torch.allclose(pf_k, pf_p, rtol=rtol, atol=rtol)
-                  and torch.allclose(mq_k, mq_p, rtol=rtol, atol=rtol),
-                  f"K3 marginal {name} {label}: differs beyond rtol {rtol}")
+            for part, a, b in zip(("probf", "mPn", "pmax", "mq", "mqc"),
+                                  out_k, out_p):
+                check(torch.allclose(a, b, rtol=rtol, atol=rtol),
+                      f"K3 marginal {name} {label}: {part} differs beyond "
+                      f"rtol {rtol}")
+            # the reductions of its own outputs, bit for bit
+            bmax = torch.where(bvalid, probv, -1e30).amax(dim=1,
+                                                          keepdim=True)
+            core = bvalid & (probv > bmax + log2_cutoff)
+            for part, got, want in (
+                    ("pmax", pmax, pf_k.reshape(B, -1).amax(dim=1)),
+                    ("mq", mq, torch.where(bvalid, mq_k, 0.0).amin(dim=1)),
+                    ("mqc", mqc, torch.where(core, mq_k, 0.0).amin(dim=1))):
+                check(torch.equal(got, want),
+                      f"K3 marginal {name} {label}: {part} is not the "
+                      f"reduction of the kernel's own outputs")
             # about ten operations per (branch, state): gather, shift, exp,
             # mask, min, clamp, sum, divide, log2, add
             compare_and_time(
-                out, ("marginal_epilogue", label), name, pf_k, pf_p,
+                out, ("marginal_epilogue", label), name, pf_k, out_p[0],
                 lambda: kernels.marginal_epilogue(*args),
                 lambda: kernels.marginal_epilogue_plain(*args),
-                gathered_bytes(*args[:6], torch)
-                + nbytes(probv, bvalid, pf_k, mq_k), 10 * B * M * Np, torch,
-                extra_err=[(mq_k, mq_p)])
+                gathered_bytes(*args[:6], torch, states_last=True)
+                + nbytes(probv, bvalid, *out_k), 10 * B * M * Np, torch,
+                extra_err=list(zip(out_k[1:], out_p[1:])))
         # K4: the sampler's draw at the e02 point (128 walkers, one
         # instance and the fleet of 8), chimera-2048's 1024 walkers, and a
         # fleet whose counts of valid states differ; the uniforms are
@@ -305,10 +389,14 @@ def kernel_checks(tt, torch, dev):
     for k, v in out.items():
         for name, cases in v.items():
             for label, r in cases.items():
-                print(f"kernel {k:18s} {name} {label}: kernel {r['ms']:.4f} "
-                      f"ms  plain {r['plain_ms']:.4f} ms  bound "
-                      f"{r['bound_ms']:.6f} ms ({r['bound_by']})  "
-                      f"max_abs_err {r['max_abs_err']:.3g}", flush=True)
+                sort = (f"  sort alone {r['sort_ms']:.4f} ms"
+                        if "sort_ms" in r else "")
+                print(f"kernel {k:18s} {name} {label}: wrapper "
+                      f"{r['ms']:.4f} ms  device {r['device_ms']:.4f} ms  "
+                      f"plain {r['plain_ms']:.4f} ms  bound "
+                      f"{r['bound_ms']:.6f} ms ({r['bound_by']})  launch "
+                      f"floor {floor:.4f} ms{sort}  max_abs_err "
+                      f"{r['max_abs_err']:.3g}", flush=True)
     return out
 
 
@@ -324,9 +412,10 @@ def recheck(tt, J, ins, states):
     return float(tt.energy_Jij(J, ins.binary_states())[0])
 
 
-def slice_run(tt, torch, J, oracle, dtype, label):
-    """One flagship search; returns (seconds, stage times, result,
-    recomputed energy, launch counts of this run)."""
+def slice_run(tt, torch, J, oracle, dtype, label, cand_factor=8):
+    """One flagship search at the merge cap ``cand_factor`` * M (None: the
+    full expansion); returns (seconds, stage times, result, recomputed
+    energy, launch counts of this run)."""
     from tnax_torch import kernels
     ins = tt.Solver(mode="Ising", Nx=oracle["Nx"], Ny=oracle["Ny"],
                     Nc=oracle["Nc"], J=J, beta=oracle["beta"], device="cuda",
@@ -337,7 +426,7 @@ def slice_run(tt, torch, J, oracle, dtype, label):
     t0 = time.perf_counter()
     res = tt.parallel.flagship_search_gs(
         ins, M=oracle["M"], relative_P_cutoff=oracle["relative_P_cutoff"],
-        Dmax=oracle["Dmax"], stage_times=stages)
+        Dmax=oracle["Dmax"], cand_factor=cand_factor, stage_times=stages)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = kernels.launch_counts()
@@ -345,13 +434,50 @@ def slice_run(tt, torch, J, oracle, dtype, label):
     print(f"slice {label}: {seconds:.3f} s  stages "
           + " ".join(f"{k}={v:.3f}" for k, v in stages.items())
           + f"  energy {res['energy']:.6f} recheck {E:.6f} oracle "
-          f"{oracle['energy']:.6f}  deg {res['degeneracy']}  merge_overflow "
+          f"{oracle['energy']:.6f}  deg {res['degeneracy']} (oracle "
+          f"{oracle['degeneracy']})  merge_overflow "
           f"{res['merge_overflow']}  count_max {res['count_max']}  "
           f"launches {counts}", flush=True)
     for k in SEARCH_KERNELS:
         check(counts[k] > 0, f"slice {label}: kernel {k} was not launched")
     check(counts["sample_draw"] == 0, f"slice {label}: the search drew")
     return seconds, stages, res, E, counts
+
+
+def full_phase(tt, torch, J):
+    """Phase 3, second part: the chimera-2048 search at the full expansion
+    (cand_factor=None, the uncapped exact merge of tnax), float64 once and
+    float32 cold and three warm. Gates every energy on its recheck, the
+    merge on no overflow and on one K2 and one K3 launch per site, and the
+    float64 energy on the committed tnax oracle of the full expansion."""
+    with open(FULL_ORACLE) as f:
+        oracle = json.load(f)
+    sites = oracle["Nx"] * oracle["Ny"]
+    runs = {}
+    for dtype, label in ((torch.float64, "full f64"),
+                         (torch.float32, "full f32 cold"),
+                         (torch.float32, "full f32 warm 1"),
+                         (torch.float32, "full f32 warm 2"),
+                         (torch.float32, "full f32 warm 3")):
+        runs[label] = slice_run(tt, torch, J, oracle, dtype, label,
+                                cand_factor=None)
+        _, _, res, E, counts = runs[label]
+        check(abs(res["energy"] - E) <= 1e-9,
+              f"{label}: returned energy {res['energy']} != recheck {E}")
+        check(res["merge_overflow"] == 0,
+              f"{label}: merge_overflow {res['merge_overflow']}")
+        for k in ("merge", "marginal_epilogue"):
+            check(counts[k] == sites, f"{label}: kernel {k} launched "
+                  f"{counts[k]} times, want one per site ({sites})")
+        if dtype == torch.float64:
+            check(E <= oracle["energy"] + 1e-6,
+                  f"{label}: energy {E} above the full-expansion oracle "
+                  f"{oracle['energy']}")
+    warm = [runs[f"full f32 warm {i}"][0] for i in (1, 2, 3)]
+    print(f"full f32 warm median {statistics.median(warm):.3f} s, spread "
+          f"{max(warm) - min(warm):.3f} s; count_max "
+          f"{runs['full f64'][2]['count_max']} (oracle "
+          f"{oracle['count_max']})", flush=True)
 
 
 def fleet_run(tt, torch, Js, oracles, dtype, label):
@@ -683,7 +809,7 @@ def main():
           f"{torch.cuda.get_device_name(0)} count "
           f"{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    names = ("gebal", "merge", "sample")
+    names = ("gebal", "merge", "marginal", "sample")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(build.load, names))
     for name in names:
@@ -692,9 +818,9 @@ def main():
     print(f"nvcc builds: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # phase 2: kernels against their plain versions
-    kres = kernel_checks(tt, torch, dev)
     floor = launch_floor_ms(torch, dev)
     print(f"launch floor (one-element kernel): {floor:.4f} ms", flush=True)
+    kres = kernel_checks(tt, torch, dev, floor)
 
     # phase 3: the slice through its entry points
     J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(INSTANCE)), 1 / 75)
@@ -721,6 +847,7 @@ def main():
           flush=True)
 
     single = runs["f32 warm 3"][4]
+    full_phase(tt, torch, J)
 
     # phase 4: the fleet through its entry points
     fleet = fleet_phase(tt, torch)
@@ -736,8 +863,7 @@ def main():
                      "tnax/precondition.py:280"),
            "merge": ("cuda", "tnax_torch/kernels/csrc/merge.cu",
                      "tnax/parallel.py:149"),
-           "marginal_epilogue": ("triton",
-                                 "tnax_torch/kernels/marginal_triton.py",
+           "marginal_epilogue": ("cuda", "tnax_torch/kernels/csrc/marginal.cu",
                                  "tnax/engine.py:382"),
            "sample_draw": ("cuda", "tnax_torch/kernels/csrc/sample.cu",
                            "tnax/parallel.py:1295")}
@@ -751,7 +877,9 @@ def main():
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=None,
-                            launch_floor_ms=floor,
+                            device_ms=r["device_ms"], launch_floor_ms=floor,
+                            **({"sort_ms": r["sort_ms"]} if "sort_ms" in r
+                               else {}),
                             launches_single=single[name],
                             launches_sample_fleet=sample[name]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "

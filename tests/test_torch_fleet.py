@@ -198,10 +198,12 @@ def test_marginal_epilogue_plain_batched_matches_per_instance():
     prob = torch.as_tensor(-np.abs(rng.standard_normal((3, 48))) * 40)
     valid = torch.as_tensor(rng.random((3, 48)) < 0.7)
     T2 = engine._marginal_T2(AT, RL, RRsel)
-    args = (T2, lB, drindex, lidx, uidx, nvalid, prob, valid)
-    got = kernels.marginal_epilogue(*args)
+    args = (T2, kernels.marginal.boltzmann_columns(lB), drindex, lidx, uidx,
+            nvalid, prob, valid)
+    got = kernels.marginal_epilogue(*args, -30.0)
     for b in range(3):
-        one = kernels.marginal_epilogue_plain(*(a[b:b + 1] for a in args))
+        one = kernels.marginal_epilogue_plain(*(a[b:b + 1] for a in args),
+                                              -30.0)
         for x, y in zip(got, one):
             torch.testing.assert_close(x[b], y[0], rtol=1e-12, atol=1e-15)
 

@@ -1,6 +1,6 @@
 """The port's kernels against their plain PyTorch versions on a CUDA
 card, at the flagship shapes and batched at the fleet's, in float32 and
-float64 (K4 at the sampler's shapes). Marked ``gpu`` and
+float64 (K2 also up to the full expansion, K4 at the sampler's shapes). Marked ``gpu`` and
 skipped without a card. This file imports neither jax nor tnax, so it
 runs where only the port is installed:
 
@@ -98,16 +98,80 @@ def test_merge_kernel_matches_plain(cuda, dtype):
                                atol=_rtol(dtype))
 
 
+def _keyed_set(rng, B, C, kb, dtype, cuda):
+    """B rows of C candidates with keys in [0, 2**kb): about C / 4 groups
+    of random size per row, the largest key 2**kb - 1 in every row; energy
+    ties within groups, 10% invalid, degeneracies up to 2**40."""
+    groups = rng.integers(0, 2 ** kb - 1, size=(B, max(1, C // 4)))
+    key1 = np.take_along_axis(groups, rng.integers(0, groups.shape[1],
+                                                   size=(B, C)), axis=1)
+    key1[:, rng.integers(0, C, size=max(1, C // 64))] = 2 ** kb - 1
+    return (_t(key1.astype(np.int32)).to(cuda),
+            _t(rng.integers(-300, 300, size=(B, C)) / 75.0).to(cuda),
+            _t(-np.abs(rng.standard_normal((B, C))) * 20).to(cuda, dtype),
+            _t(rng.random((B, C)) < 0.9).to(cuda),
+            _t(rng.integers(1, 2 ** 40, size=(B, C))).to(cuda))
+
+
+def _gprob_rtol(seg, dtype):
+    """gprob's tolerance: the kernel adds a group's n near members in
+    another order than the plain version, so the two sums of n terms of one
+    sign differ by at most 2 n eps relative; n is the largest group."""
+    n = max(int(torch.bincount(row).max()) for row in seg)
+    return 2 * n * torch.finfo(dtype).eps
+
+
+# (B, C) of the merge: the main path (C = 8 * 1024), the fleet (8 x 2 *
+# 1024), the tiled path up to the full expansion M * Np = 262,144, and the
+# edges of the one-block path (C <= 4096) and of the old cap
+MERGE_SHAPES = [(1, 8192), (8, 2048), (1, 65536), (1, 262144), (8, 65536),
+                (1, 1), (1, 7), (1, 4096), (1, 4097), (1, 8193)]
+
+
 @pytest.mark.gpu
-def test_merge_kernel_refuses_oversized_sets(cuda):
-    C = kernels.merge.C_MAX + 1
-    args = (torch.zeros(C, dtype=torch.int32, device=cuda),
-            torch.zeros(C, dtype=torch.float64, device=cuda),
-            torch.zeros(C, dtype=torch.float64, device=cuda),
-            torch.ones(C, dtype=torch.bool, device=cuda),
-            torch.ones(C, dtype=torch.int64, device=cuda))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", MERGE_SHAPES,
+                         ids=[f"{b}x{c}" for b, c in MERGE_SHAPES])
+@pytest.mark.parametrize("kb", [19, None])
+def test_merge_kernel_any_size_matches_plain(cuda, dtype, shape, kb):
+    """K2 at every size it takes, with kb key bits (chimera-2048's 19) or
+    all 32: perm, seg, Emin, first_min and the degeneracies exactly, gprob
+    within the reordered sum's tolerance."""
+    B, C = shape
+    args = _keyed_set(np.random.default_rng(C + B), B, C, 19, dtype, cuda)
+    before = kernels.merge_segments.launches
+    got = kernels.merge_segments(*args, 1e-12, key_bits=kb)
+    assert kernels.merge_segments.launches == before + 1
+    want = kernels.merge_segments_plain(*args, 1e-12)
+    for i in (0, 1, 2, 3, 5):
+        assert torch.equal(got[i], want[i]), i
+    rtol = _gprob_rtol(want[1], dtype)
+    torch.testing.assert_close(got[4], want[4], rtol=rtol, atol=rtol)
+    # the order of the sums is fixed: a second call gives the same bits
+    assert torch.equal(kernels.merge_segments(*args, 1e-12, key_bits=kb)[4],
+                       got[4])
+
+
+@pytest.mark.gpu
+def test_merge_kernel_refuses_wrong_dtypes_and_shapes(cuda):
+    args = _keyed_set(np.random.default_rng(0), 2, 300, 19, torch.float32,
+                      cuda)
+    bad = [
+        (args[0].long(),) + args[1:],                      # int64 keys
+        args[:1] + (args[1].float(),) + args[2:],          # float32 energies
+        args[:2] + (args[2].half(),) + args[3:],           # float16 probs
+        args[:3] + (args[3].to(torch.uint8),) + args[4:],  # valid not bool
+        args[:4] + (args[4].int(),),                       # int32 degeneracy
+        args[:1] + (args[1][:, :-1],) + args[2:],          # a short row
+        tuple(a[..., None] for a in args),                 # (B, C, 1)
+        args[:2] + (args[2].cpu(),) + args[3:],            # another device
+        tuple(a[:, :0] for a in args),                     # C = 0
+    ]
+    for case in bad:
+        with pytest.raises(ValueError):
+            kernels.merge_segments(*case, 1e-12)
     with pytest.raises(ValueError):
-        kernels.merge_segments(*args, 1e-12)
+        kernels.merge_segments(*args, 1e-12, key_bits=32)
 
 
 @pytest.mark.gpu
@@ -133,16 +197,20 @@ def test_merge_kernel_batched_matches_plain(cuda, dtype):
 
 
 def _batched_marginal_args(rng, cuda, dtype, nvalids, M=1024):
+    """K3's inputs at full width for one instance per entry of
+    ``nvalids``: lBT with the states last and int64 indices, as the search
+    holds them, and the cutoff window."""
     ins = [_marginal_inputs(rng, M=M, Np=256, lh=16, lv=16, D=32,
                             nvalid=nv) for nv in nvalids]
     B = len(nvalids)
     lB, drindex, AT, RL, RRsel, lidx, uidx = (
         _t(np.stack(x)).to(cuda) for x in list(zip(*ins))[:7])
     T2 = engine._marginal_T2(*(x.to(dtype) for x in (AT, RL, RRsel)))
-    return (T2, lB.to(dtype), drindex, lidx, uidx,
+    return (T2, kernels.marginal.boltzmann_columns(lB.to(dtype)),
+            drindex.long(), lidx.long(), uidx.long(),
             torch.tensor(nvalids, device=cuda),
             _t(-np.abs(rng.standard_normal((B, M))) * 40).to(cuda, dtype),
-            _t(rng.random((B, M)) < 0.7).to(cuda))
+            _t(rng.random((B, M)) < 0.7).to(cuda), float(np.log2(1e-8)))
 
 
 @pytest.mark.gpu
@@ -150,6 +218,8 @@ def _batched_marginal_args(rng, cuda, dtype, nvalids, M=1024):
 @pytest.mark.parametrize("nvalids", [[200], [200, 256, 97, 1, 256, 180, 64,
                                            255]], ids=["B1", "B8"])
 def test_marginal_kernel_matches_plain(cuda, dtype, nvalids):
+    """K3's five outputs against the plain version's; its reductions equal
+    the same reductions of its own probf and mPn exactly."""
     args = _batched_marginal_args(np.random.default_rng(2), cuda, dtype,
                                   nvalids)
     before = kernels.marginal_epilogue.launches
@@ -158,6 +228,15 @@ def test_marginal_kernel_matches_plain(cuda, dtype, nvalids):
     want = kernels.marginal_epilogue_plain(*args)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=_rtol(dtype), atol=_rtol(dtype))
+    probf, mPn, pmax, mq, mqc = got
+    prob, valid, log2_cutoff = args[6:]
+    B = len(nvalids)
+    assert torch.equal(pmax, probf.reshape(B, -1).amax(dim=1))
+    assert torch.equal(mq, torch.where(valid, mPn, 0.0).amin(dim=1))
+    bmax = torch.where(valid, prob, kernels.marginal.NEG).amax(
+        dim=1, keepdim=True)
+    core = valid & (prob > bmax + log2_cutoff)
+    assert torch.equal(mqc, torch.where(core, mPn, 0.0).amin(dim=1))
 
 
 def _draw_args(rng, cuda, dtype, nvalids, M):
@@ -232,9 +311,10 @@ def test_search_loop_never_syncs(cuda):
     raw = [fleet(a, torch.float64)
            for a in parallel._padded_energy_rows_problem(ins.problem)]
     cols = (np.arange(4)[:, None] * 4 + np.arange(4)[None, :]).tolist()
-    grid_in = dict(lB=lB, drindex=dmap.long() * g.lh + rmap.long(),
+    grid_in = dict(lBT=kernels.marginal.boltzmann_columns(lB),
+                   drindex=dmap.long() * g.lh + rmap.long(),
                    Es=raw[0], Esl=raw[1], Esu=raw[2], dmap=dmap, rmap=rmap,
-                   nvalid=fleet(g.nstates), cols=cols)
+                   nvalid=fleet(g.nstates).long(), cols=cols)
     beam0 = parallel._initial_beam(2, M, D, 4, 4, torch.float32, cuda)
     kw = dict(M=M, Nx=4, bits=4, min_dEng=1e-12,
               log2_cutoff=float(np.log2(1e-8)), cand=8 * M)

@@ -128,9 +128,11 @@ def test_marginal_epilogue_plain_matches_tnax_probf():
                      NEG)
     want = np.asarray(jnp.where(jnp.asarray(valid)[:, None],
                                 jnp.asarray(prob)[:, None] + logP, NEG))
+    lB, rest = args[0], args[1:-1]
     probf, mPn = (x[0] for x in engine.marginal_probf(
-        *(_t(a)[None] for a in args[:-1]), torch.tensor([args[-1]]),
-        _t(prob)[None], _t(valid)[None]))
+        kernels.marginal.boltzmann_columns(_t(lB)[None]),
+        *(_t(a)[None] for a in rest), torch.tensor([args[-1]]),
+        _t(prob)[None], _t(valid)[None], float(np.log2(1e-8)))[:2])
     np.testing.assert_allclose(probf.numpy(), want, rtol=1e-12)
     np.testing.assert_allclose(mPn.numpy(), np.asarray(mPn_j), rtol=1e-12,
                                atol=1e-15)

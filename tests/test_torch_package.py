@@ -27,6 +27,7 @@ def _sources():
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "tools", "profile_port.py")
+    yield os.path.join(ROOT, "tools", "smoke_ab.py")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),
@@ -49,6 +50,19 @@ def test_wrappers_count_no_launch_on_cpu():
                                   torch.tensor([4]),
                                   torch.tensor([[0.0, 0.3, 0.99]]))
     assert indc.tolist() == [[0, 1, 3]]
+    key1 = torch.tensor([[3, 1, 3, 0]], dtype=torch.int32)
+    perm = kernels.merge_segments(
+        key1, torch.zeros((1, 4), dtype=torch.float64), torch.zeros((1, 4)),
+        torch.ones((1, 4), dtype=torch.bool),
+        torch.ones((1, 4), dtype=torch.int64), 1e-12, key_bits=2)[0]
+    assert perm.tolist() == [[3, 1, 0, 2]]
+    pmax = kernels.marginal_epilogue(
+        T2, lB.movedim(1, -1), torch.arange(4)[None],
+        torch.zeros((1, 3), dtype=torch.int64),
+        torch.zeros((1, 3), dtype=torch.int64), torch.tensor([4]),
+        torch.zeros((1, 3), dtype=torch.float64),
+        torch.ones((1, 3), dtype=torch.bool), -30.0)[2]
+    assert pmax.tolist() == [-2.0]
     assert kernels.launch_counts() == dict(gebal=0, merge=0,
                                            marginal_epilogue=0,
                                            sample_draw=0)

@@ -13,6 +13,7 @@ from tnax import engine as jengine
 from tnax import parallel as jpar
 import tnax_torch as tt
 from tnax_torch import engine, interop, parallel
+from tnax_torch.kernels import marginal
 from test_search_small import make_chimera_like
 from test_torch_bmps import tnax_omega
 
@@ -82,7 +83,8 @@ def test_row_step_from_tnax_beam_matches_tnax():
                                atol=1e-14)
     row = {k: torch.as_tensor(np.array(v[1]))[None] for k, v in rows.items()
            if k != "cols"}
-    row.update(cols=rows["cols"][1].tolist(), AT=rhoT_t[:, 2], RRs=RRs)
+    row.update(cols=rows["cols"][1].tolist(), AT=rhoT_t[:, 2], RRs=RRs,
+               lBT=marginal.boltzmann_columns(row.pop("lB")))
     got, aux = parallel.row_step(beam, row, M=M, Nx=g.Nx, bits=bits,
                                  min_dEng=1e-12,
                                  log2_cutoff=float(np.log2(1e-10)),

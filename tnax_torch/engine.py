@@ -236,15 +236,19 @@ def marginal_step(lB, drindex, AT, RL, RRsel, lidx, uidx, nvalid):
     return _marginal.marginal_pn_plain(T2, lB, drindex, lidx, uidx, nvalid)
 
 
-def marginal_probf(lB, drindex, AT, RL, RRsel, lidx, uidx, nvalid, prob,
-                   valid):
+def marginal_probf(lBT, drindex, AT, RL, RRsel, lidx, uidx, nvalid, prob,
+                   valid, log2_cutoff):
     """:func:`marginal_step` followed by the search's branch
-    log2-probabilities: returns probf (B, M, Np) = prob + log2(Pn), NEG
-    for invalid branches or zero marginals, and mPn (B, M). The
-    elementwise epilogue after the GEMMs is kernel K3 on CUDA."""
+    log2-probabilities and their per-instance reductions, with the
+    Boltzmann table transposed (lBT (B, lh, lv, Np), see
+    ``kernels.marginal.boltzmann_columns``). Returns probf (B, M, Np) =
+    prob + log2(Pn), NEG for invalid branches or zero marginals, mPn
+    (B, M), and pmax, mq, mqc (B,) as
+    ``kernels.marginal.marginal_epilogue_plain`` defines them. Everything
+    after the GEMMs is kernel K3 on CUDA."""
     T2 = _marginal_T2(AT, RL, RRsel)
-    return _marginal.marginal_epilogue(T2, lB, drindex, lidx, uidx, nvalid,
-                                       prob, valid)
+    return _marginal.marginal_epilogue(T2, lBT, drindex, lidx, uidx, nvalid,
+                                       prob, valid, log2_cutoff)
 
 
 def marginal_draw(lB, drindex, AT, RL, RRsel, lidx, uidx, nvalid, u):

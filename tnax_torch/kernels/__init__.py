@@ -3,7 +3,7 @@
 =====  ===================================  ==========================
 K1     ``gebal.gebal_scale``                CUDA C++ (csrc/gebal.cu)
 K2     ``merge.merge_segments``             CUDA C++ (csrc/merge.cu)
-K3     ``marginal.marginal_epilogue``       Triton (marginal_triton.py)
+K3     ``marginal.marginal_epilogue``       CUDA C++ (csrc/marginal.cu)
 K4     ``sample.sample_draw``               CUDA C++ (csrc/sample.cu)
 =====  ===================================  ==========================
 

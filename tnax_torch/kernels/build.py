@@ -57,6 +57,17 @@ def load(name: str) -> ctypes.CDLL:
     return dll
 
 
+@functools.lru_cache(maxsize=None)
+def fn(name: str, symbol: str, argtypes: tuple, restype=ctypes.c_int):
+    """The entry point ``symbol`` of ``csrc/<name>.cu`` with its
+    ``argtypes`` and ``restype`` (by default the CUDA error code), bound
+    once, when first asked for."""
+    f = getattr(load(name), symbol)
+    f.argtypes = list(argtypes)
+    f.restype = restype
+    return f
+
+
 def check(dll: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:
@@ -71,3 +82,10 @@ def ptr(t) -> ctypes.c_void_p:
 def stream(device) -> ctypes.c_void_p:
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def raw_stream(device) -> int:
+    """The current CUDA stream of ``device`` as an integer handle, without
+    building a Stream object (a few microseconds less per launch)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index)

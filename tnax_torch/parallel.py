@@ -39,6 +39,7 @@ import torch
 
 from . import engine
 from . import precondition as pre
+from .kernels.marginal import boltzmann_columns
 from .kernels.merge import merge_segments, segment_stats_plain
 
 NEG = -1e30  # effectively -inf log2 probability
@@ -84,7 +85,7 @@ def _lexsort(keys):
 
 
 def merge_candidates(vind, Eng, prob, valid, min_dEng, bits, M, deg,
-                     key1=None):
+                     key1=None, key_bits=None):
     """Merge each instance's C expanded candidates by ``vind`` and keep
     its top-M groups.
 
@@ -94,15 +95,16 @@ def merge_candidates(vind, Eng, prob, valid, min_dEng, bits, M, deg,
     Inputs carry the instance axis: vind (B, C, Nx+1), Eng/prob/valid/deg
     (B, C). ``key1`` (B, C) int32, if given, is an injective single-key
     encoding of (vind row, validity); its grouping and segment statistics
-    are kernel K2 on CUDA. Without it the rows are lexsorted (plain
-    torch).
+    are kernel K2 on CUDA, which sorts ``key_bits`` bits of it when given
+    (every key in [0, 2**key_bits)). Without it the rows are lexsorted
+    (plain torch).
 
     Returns (slot (B, C), rep (B, M), prob_out, Eng_out, out_valid, disc
     (B,), deg_out (B, M) int64).
     """
     if key1 is not None:
         perm, seg, Emin, first_min, gprob, deg_seg = merge_segments(
-            key1, Eng, prob, valid, deg, min_dEng)
+            key1, Eng, prob, valid, deg, min_dEng, key_bits)
     else:
         vcol = torch.where(valid, 0, 1).to(vind.dtype)[..., None]
         perm = _lexsort(pack_keys(torch.cat([vind, vcol], dim=2), bits))
@@ -152,11 +154,13 @@ def row_step(beam, row, *, M, Nx, bits, min_dEng, log2_cutoff, cand=None):
     beam: dict of RL (B, M, D), vind (B, M, Nx+1) int32, states (B, M, L)
       int32, Eng (B, M) float64, prob (B, M), deg (B, M) int64, valid
       (B, M) bool, aidx (B, M).
-    row: dict of per-site stacks lB (B, Nx, Np, lh, lv), drindex
-      (B, Nx, Np), AT (B, Nx, D, lv, D), RRs (B, Nx, M, D, lh), Es
-      (B, Nx, Np), Esl (B, Nx, Np, lh), Esu (B, Nx, Np, lv) raw float64
-      energies, dmap/rmap (B, Nx, Np), nvalid (B, Nx) on the device, and
-      the host list cols (Nx,).
+    row: dict of per-site stacks lBT (B, Nx, lh, lv, Np) (the
+      log-Boltzmann tables with the states last,
+      ``kernels.marginal.boltzmann_columns``), drindex (B, Nx, Np) int64,
+      AT (B, Nx, D, lv, D), RRs (B, Nx, M, D, lh), Es (B, Nx, Np), Esl
+      (B, Nx, Np, lh), Esu (B, Nx, Np, lv) raw float64 energies, dmap/rmap
+      (B, Nx, Np), nvalid (B, Nx) int64 on the device, and the host list
+      cols (Nx,).
 
     Per site and per instance: relative cutoff -> merge by ``vind`` over
     the top-``cand`` candidates -> top-M groups. ``cand=None`` is the full
@@ -164,7 +168,7 @@ def row_step(beam, row, *, M, Nx, bits, min_dEng, log2_cutoff, cand=None):
     diagnostics. Returns (beam', aux) with aux = dict(mq, mqc, pd, ovf,
     cmax) of (B,) device tensors (no host sync).
     """
-    B, _, Np = row["lB"].shape[:3]
+    B, Np = row["lBT"].shape[0], row["lBT"].shape[-1]
     C = min(cand if cand is not None else M * Np, M * Np)
     kb = (M - 1).bit_length() + 2 * bits + 1
     RL, vind, states, Eng, prob, deg, valid, aidx = (
@@ -185,18 +189,15 @@ def row_step(beam, row, *, M, Nx, bits, min_dEng, log2_cutoff, cand=None):
         Einc = ((Eng[:, :, None] + Es_t[:, None, :])
                 + take(Esl_t.transpose(1, 2), lidx)) \
             + take(Esu_t.transpose(1, 2), uidx)
-        probf, mPn = engine.marginal_probf(
-            row["lB"][:, nx], row["drindex"][:, nx], AT, RL, RRsel, lidx,
-            uidx, row["nvalid"][:, nx], prob, valid)
+        # the epilogue (K3) also takes the row's reductions: pmax, and the
+        # negativeness of live (mq) and of core branches (mqc)
+        probf, _, pmax, mq, mqc = engine.marginal_probf(
+            row["lBT"][:, nx], row["drindex"][:, nx], AT, RL, RRsel, lidx,
+            uidx, row["nvalid"][:, nx], prob, valid, log2_cutoff)
         probf = probf.reshape(B, M * Np)
-        # negativeness only from live branches, and (core) only from those
-        # within the cutoff window of the best branch
-        mqs.append(torch.where(valid, mPn, 0.0).amin(dim=1))
-        bmax = torch.where(valid, prob, NEG).amax(dim=1, keepdim=True)
-        core = valid & (prob > bmax + log2_cutoff)
-        mqcs.append(torch.where(core, mPn, 0.0).amin(dim=1))
-
-        pmax = probf.amax(dim=1, keepdim=True)
+        mqs.append(mq)
+        mqcs.append(mqc)
+        pmax = pmax[:, None]
         cutoff = pmax + log2_cutoff
         flag = (probf > cutoff) & (probf > NEG / 2)
         count = flag.sum(dim=1)
@@ -244,7 +245,7 @@ def row_step(beam, row, *, M, Nx, bits, min_dEng, log2_cutoff, cand=None):
                     | (1 - cvalid.long())).to(torch.int32)
         slot, rep, prob, Eng, valid, disc_m, deg = merge_candidates(
             vind_c, E_cand, vals_c, cvalid, min_dEng, bits, M,
-            deg.gather(1, src), key1=key1)
+            deg.gather(1, src), key1=key1, key_bits=kb)
         bsrc = src.gather(1, rep)
         vind = take(vind_c, rep)
         states = take(states, bsrc)
@@ -275,9 +276,9 @@ def full_search_scan(beam0, grid_in, rhoT, Wt, *, M, Nx, bits, min_dEng,
     """The whole ground-state search of B instances: per lattice row, the
     right environments of every branch, then :func:`row_step`'s site loop.
 
-    grid_in: dict of (B, Ny, ...) stacks lB, drindex, Es, Esl, Esu, dmap,
-    rmap, nvalid (B, Ny, Nx) on the device, and the host list cols
-    (Ny, Nx). rhoT (B, Ny+1, Nx, D, lv, D), Wt (B, Ny, Nx, lh, lv, lh, lv).
+    grid_in: dict of (B, Ny, ...) stacks lBT, drindex, Es, Esl, Esu,
+    dmap, rmap, nvalid (B, Ny, Nx) on the device (as :func:`row_step`
+    takes them), and the host list cols (Ny, Nx). rhoT (B, Ny+1, Nx, D, lv, D), Wt (B, Ny, Nx, lh, lv, lh, lv).
     Returns (beam, aux) with aux reduced over rows, per instance.
     """
     B, D = rhoT.shape[0], rhoT.shape[3]
@@ -387,7 +388,7 @@ def _fleet_tables(solvers, pre_steps, max_scale):
             for k, v in engine.identity_gauges(grids[0]).items()},
         ndall=fleet([ins.problem.ld[: Ny - 1] for ins in solvers],
                     torch.int32),
-        nvalid=fleet([g.nstates for g in grids], torch.int32),
+        nvalid=fleet([g.nstates for g in grids], torch.int64),
         betas=[ins0.beta * 2.0 ** (nn - pre_steps)
                for nn in range(pre_steps)],
         max_scale=float(2.0 ** np.floor(np.log2(np.sqrt(max_scale)))),
@@ -439,9 +440,11 @@ def _flagship_body(f, EsR, EslR, EsuR, *, M, bits, min_dEng, log2_cutoff,
     lB, drindex, Wt, rhoT = _boundary_stages(
         f, clock, Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
         pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps, rsvd=rsvd, omega=omega)
-    grid_in = dict(lB=lB, drindex=drindex, Es=EsR, Esl=EslR, Esu=EsuR,
-                   dmap=f["dmap"], rmap=f["rmap"], nvalid=f["nvalid"],
-                   cols=f["cols"])
+    # the Boltzmann tables with the states last, made once per search: a
+    # branch's column is then one contiguous run for the epilogue (K3)
+    grid_in = dict(lBT=boltzmann_columns(lB), drindex=drindex, Es=EsR,
+                   Esl=EslR, Esu=EsuR, dmap=f["dmap"], rmap=f["rmap"],
+                   nvalid=f["nvalid"], cols=f["cols"])
     beam0 = _initial_beam(f["B"], M, Dmax, f["Nx"], f["Ny"], f["dtype"],
                           f["device"])
     beam, aux = full_search_scan(beam0, grid_in, rhoT, Wt, M=M, Nx=f["Nx"],
@@ -464,8 +467,9 @@ def multi_flagship_search_gs(solvers, M=2 ** 10, relative_P_cutoff=1e-6,
 
     The instances must share (Ny, Nx, Np, lh, lv), beta, device and dtype
     (ValueError otherwise). ``cand_factor`` sizes each instance's merge
-    candidate set at ``cand_factor*M`` (None = the full M*Np expansion;
-    kernel K2 takes at most 8192). ``omega`` is the zip-up sketch, shared
+    candidate set at ``cand_factor*M`` (None = the full M*Np expansion,
+    the uncapped exact merge; kernel K2 takes any cap). ``omega`` is the
+    zip-up sketch, shared
     by the fleet (see ``bmps.zipup_apply``): a callable
     ``(L, n, k) -> tensor`` or None for the seeded default.
     ``stage_times``, if a dict, receives the seconds of the four stages

@@ -23,6 +23,12 @@ fleet instances use the fleet's operating point:
     python tools/make_chimera_instance.py --L 512 --seed 1 \
         --out tests/data/chimera512_synth_s1.txt --oracle --cand-factor 2
 
+``--cand-factor 0`` is the full M*Np expansion (tnax's ``cand_factor=None``,
+the uncapped exact merge); its oracle goes to ``<out stem>_full_oracle.json``:
+
+    python tools/make_chimera_instance.py --L 2048 --seed 0 \
+        --out tests/data/chimera2048_synth_s0.txt --oracle --cand-factor 0
+
 ``--sample-oracle`` runs tnax's ``flagship_sample`` instead, in float64 on
 the CPU at the e02 sampling point (M=1024 walkers, D=48, pre_steps=2,
 beta=3, seed 0, the zip-up sketch on), and writes
@@ -100,8 +106,9 @@ def _commit() -> str:
                           capture_output=True, text=True).stdout.strip()
 
 
-def tnax_oracle(path: str, n: int, cand_factor: int = 8) -> dict:
-    """tnax flagship search on the instance, float64 on the CPU."""
+def tnax_oracle(path: str, n: int, cand_factor: int | None = 8) -> dict:
+    """tnax flagship search on the instance, float64 on the CPU;
+    ``cand_factor=None`` is the full expansion."""
     tnax, J, ins = _tnax_solver(path, n)
     from tnax import parallel
     t0 = time.time()
@@ -157,7 +164,8 @@ def main():
     ap.add_argument("--sample-oracle", action="store_true",
                     help="tnax Gibbs sampling at the e02 point instead")
     ap.add_argument("--cand-factor", type=int, default=8,
-                    help="merge cap of the oracle search, in units of M")
+                    help="merge cap of the oracle search, in units of M; "
+                    "0 is the full expansion (tnax's cand_factor=None)")
     args = ap.parse_args()
     n = SIDES[args.L]
     write_instance(args.out, n, args.seed)
@@ -172,11 +180,14 @@ def main():
         print(json.dumps({k: out[k] for k in ("mean", "std", "min", "N",
                                               "cold_seconds")}))
     if args.oracle:
-        out = tnax_oracle(args.out, n, args.cand_factor)
-        with open(os.path.splitext(args.out)[0] + "_oracle.json", "w") as f:
+        full = args.cand_factor == 0
+        out = tnax_oracle(args.out, n, None if full else args.cand_factor)
+        suffix = "_full_oracle.json" if full else "_oracle.json"
+        with open(os.path.splitext(args.out)[0] + suffix, "w") as f:
             json.dump(out, f, indent=1)
             f.write("\n")
         print(json.dumps({k: out[k] for k in ("energy", "degeneracy",
+                                              "merge_overflow", "count_max",
                                               "cold_seconds")}))
 
 
