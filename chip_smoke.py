@@ -8,8 +8,12 @@ Run from the root of a checkout on a machine with one CUDA card. It
      nvcc per source, all at once;
   2. compares each kernel with its plain PyTorch version on the card, in
      float32 and float64, at the single search's shapes (B = 1) and the
-     fleet's (B = 8 instances in one launch), K2 also at the tiled sizes up
-     to the full expansion (1 x 65,536, 1 x 262,144, 8 x 65,536), and
+     fleet's (B = 8 instances in one launch), K1 also on badly balanced
+     matrices (entries spanning 2^-50 .. 2^50, a zero row and column, nd <
+     n), K2 also at the tiled sizes up to the full expansion (1 x 65,536,
+     1 x 262,144, 8 x 65,536), K4 (the sampler's site step) at the
+     sampling points' shapes (D = 48: 128 walkers of one instance and of
+     8, 1024 walkers, a ragged fleet), and
      prints per kernel and shape the time of one wrapper call and of the
      plain version (median of 20 calls, CUDA events), the device time
      alone (20 calls captured in one CUDA graph, per call), the least time
@@ -19,7 +23,7 @@ Run from the root of a checkout on a machine with one CUDA card. It
   3. drives the flagship ground-state search through the public entry
      points (load_Jij -> Solver -> parallel.flagship_search_gs) on the
      committed synthetic chimera-2048 instance at M=1024, D=32, cutoff
-     1e-8: at the default merge cap (cand_factor=8) float64 cold and warm,
+     1e-8: at the default merge cap (cand_factor=8) float64 once,
      float32 cold and three warm runs, then the full expansion
      (cand_factor=None, C = M * Np = 262,144 candidates per site) float64
      once and float32 cold and three warm, with per-stage times; the
@@ -41,16 +45,17 @@ Run from the root of a checkout on a machine with one CUDA card. It
      flagship_sample / multi_flagship_sample) at beta=3, D=48,
      pre_steps=2: the e02 point (128 walkers) on chimera512_synth_s1 and
      on the fleet of 8 (float64 once, float32 cold and three warm), and
-     1024 walkers on chimera-2048 (float32 cold and warm, then float32
+     1024 walkers on chimera-2048 (float32 once, then float32
      and float64 with every draw examined), with stage times, samples per
      second and instances per minute; every sampled energy is checked
      against ``energy_Jij`` of its state, the launches of K4 against one
      per site and of K1 against one per interface sweep step, and the
      float64 mean energy on s1 against the committed tnax sampling
-     oracle; the float32 fleet is printed beside single runs on the same
-     uniforms, and the examined passes print their draws from the uniform
-     row (saturated or vanishing marginals) by cause: the float64 pass
-     must have none.
+     oracle (K4 runs the whole site step after the two GEMMs, so its
+     launches are the site loop's); the float32 fleet is printed beside
+     single runs on the same uniforms, and the examined passes print their
+     draws from the uniform row (saturated or vanishing marginals) by
+     cause: the float64 pass must have none.
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before that line is printed. Without a CUDA card it fails.
@@ -129,22 +134,87 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def gathered_bytes(T2, lB, drindex, lidx, uidx, nvalid, torch,
-                   states_last=False):
-    """Bytes the marginal tail (K3, K4) must read of its gathered inputs:
-    the Np-state Boltzmann column lB[b, :, l, u] once for each distinct
-    (l, u) pair of instance b, the valid states' entries of each branch's
-    row of T2, and the indices at the width the kernel reads. K4 takes
-    lB (B, Np, lh, lv) and 32-bit indices; K3 (``states_last``) takes
-    (B, lh, lv, Np) and the search's 64-bit indices."""
-    Np, lv = (lB.shape[3], lB.shape[2]) if states_last else \
-        (lB.shape[1], lB.shape[3])
-    index_bytes = 8 if states_last else 4
+def gathered_bytes(T2, lBT, drindex, lidx, uidx, nvalid, torch):
+    """Bytes K3 must read of its gathered inputs: the Np-state Boltzmann
+    column lBT[b, l, u, :] once for each distinct (l, u) pair of instance
+    b, the valid states' entries of each branch's row of T2, and the
+    64-bit indices."""
+    lv, Np = lBT.shape[2], lBT.shape[3]
     pairs = sum(int(torch.unique(lidx[b].long() * lv + uidx[b].long()).numel())
                 for b in range(lidx.shape[0]))
     nv = int(nvalid.long().clamp(max=Np).sum())
     return (pairs * Np + nv * lidx.shape[1]) * T2.element_size() \
-        + index_bytes * (nv + 2 * lidx.numel() + nvalid.numel())
+        + 8 * (nv + 2 * lidx.numel() + nvalid.numel())
+
+
+# sample_site's arguments, in order
+SITE_KEYS = ("T2", "lBT", "drindex", "dmap", "rmap", "nvalid", "u", "AT",
+             "RL", "vind", "states", "nx", "col", "mq")
+
+
+def site_case(gen, nvs, M, dtype, dev, torch, D=48):
+    """K4's inputs for one instance per entry of ``nvs`` (its valid
+    states) and M walkers, at chimera's widths (Np = 256, lh = lv = 16)
+    and the sampling points' D, as the sampler holds them: the table with
+    the states last, int64 drindex and nvalid, int32 dmap, rmap, vind
+    (Nx + 1 = 17 columns, the site at nx = 5) and states (256 columns),
+    mq = +inf."""
+    from tnax_torch.kernels.marginal import boltzmann_columns
+    Np, lh, lv, B = 256, 16, 16, len(nvs)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen,
+                           dtype=torch.float64).to(dev, dtype)
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    T2 = rand(B, M, lv * lh).abs() - 0.05 * rand(B, M, lv * lh).abs()
+    lB = -rand(B, Np, lh, lv).abs() * 30
+    for b, nv in enumerate(nvs):
+        lB[b, nv:] = -float("inf")
+    return dict(
+        T2=T2, lBT=boltzmann_columns(lB),
+        drindex=torch.stack([torch.randperm(lv * lh, generator=gen)[:Np]
+                             for _ in range(B)]).to(dev),
+        dmap=ints(lv, (B, Np)), rmap=ints(lh, (B, Np)),
+        nvalid=torch.tensor(nvs, device=dev),
+        u=torch.rand((B, M), generator=gen,
+                     dtype=torch.float64).to(dev, dtype),
+        AT=rand(B, D, lv, D), RL=rand(B, M, D), vind=ints(16, (B, M, 17)),
+        states=torch.zeros((B, M, 256), dtype=torch.int32, device=dev),
+        nx=5, col=37,
+        mq=torch.full((B,), float("inf"), dtype=dtype, device=dev))
+
+
+def walkers_copy(a):
+    """K4's inputs ``a`` with copies of what it updates in place."""
+    return dict(a, vind=a["vind"].clone(), states=a["states"].clone(),
+                mq=a["mq"].clone())
+
+
+def site_bytes(a, after, RLn, mPn, torch):
+    """Bytes K4 must move on the inputs ``a``, with ``after`` the walkers
+    it left: each walker's column once per distinct (l, u) pair of its
+    instance, T2's and drindex's valid entries, the drawn entries of dmap
+    and rmap, AT's D x D slice of each distinct drawn down-leg, RL in and
+    out, u, nvalid, the vind reads and writes, the states, mPn and mq
+    writes."""
+    T2, lBT, nx, col = a["T2"], a["lBT"], a["nx"], a["col"]
+    B, M = T2.shape[:2]
+    lv, Np, D = lBT.shape[2], lBT.shape[3], a["RL"].shape[2]
+    e = T2.element_size()
+
+    def distinct(x):
+        return sum(int(torch.unique(x[b]).numel()) for b in range(B))
+    pairs = distinct(a["vind"][:, :, nx].long() * lv
+                     + a["vind"][:, :, nx + 1].long())
+    nv = int(a["nvalid"].clamp(max=Np).sum())
+    return (pairs * Np + nv * M + distinct(after["vind"][:, :, nx]) * D * D) \
+        * e + 8 * nv + 8 * distinct(after["states"][:, :, col]) \
+        + nbytes(a["RL"], RLn, a["u"], mPn, a["mq"], a["nvalid"]) \
+        + 4 * B * M * 5
 
 
 def bound(moved, ops, name):
@@ -229,12 +299,24 @@ def kernel_checks(tt, torch, dev, floor):
                                dtype=torch.float64).to(dev, dtype)
 
         # K1: the interface environments of one ladder step, 16 x 16,
-        # badly scaled: 15 (chimera-2048) and 8 x 7 (the fleet)
-        for nmat, label in ((15, "B1"), (56, "B8")):
-            A = rand(nmat, 16, 16) * torch.exp2(torch.randint(
-                -20, 20, (nmat, 16, 1), generator=gen)).to(dev, dtype)
-            nd = torch.full((nmat,), 16, dtype=torch.int32, device=dev)
-            nd[3] = 9
+        # badly scaled: 15 (chimera-2048) and 8 x 7 (the fleet); and 15
+        # badly balanced ones (a similarity scaling 2^(k_i - k_j), k in
+        # [-25, 25], so entries span 2^-50 .. 2^50; row 2 and column 5
+        # zero; nd < n in every fifth)
+        for nmat, label in ((15, "B1"), (56, "B8"), (15, "extreme")):
+            if label == "extreme":
+                k = torch.randint(-25, 26, (nmat, 16), generator=gen)
+                A = rand(nmat, 16, 16) * torch.exp2(
+                    k[:, :, None] - k[:, None, :]).to(dev, dtype)
+                A[:, 2, :] = 0.0
+                A[:, :, 5] = 0.0
+                nd = torch.full((nmat,), 16, dtype=torch.int32, device=dev)
+                nd[::5] = 13
+            else:
+                A = rand(nmat, 16, 16) * torch.exp2(torch.randint(
+                    -20, 20, (nmat, 16, 1), generator=gen)).to(dev, dtype)
+                nd = torch.full((nmat,), 16, dtype=torch.int32, device=dev)
+                nd[3] = 9
             got = kernels.gebal_scale(A, nd, 32.0)
             want = kernels.gebal_scale_plain(A, nd, 32.0)
             check(torch.equal(got, want),
@@ -338,54 +420,64 @@ def kernel_checks(tt, torch, dev, floor):
                 out, ("marginal_epilogue", label), name, pf_k, out_p[0],
                 lambda: kernels.marginal_epilogue(*args),
                 lambda: kernels.marginal_epilogue_plain(*args),
-                gathered_bytes(*args[:6], torch, states_last=True)
+                gathered_bytes(*args[:6], torch)
                 + nbytes(probv, bvalid, *out_k), 10 * B * M * Np, torch,
                 extra_err=list(zip(out_k[1:], out_p[1:])))
-        # K4: the sampler's draw at the e02 point (128 walkers, one
-        # instance and the fleet of 8), chimera-2048's 1024 walkers, and a
-        # fleet whose counts of valid states differ; the uniforms are
-        # drawn once and shared by both versions
+        # K4: the sampler's site step at the sampling points (D = 48): the
+        # e02 point (128 walkers, one instance and the fleet of 8),
+        # chimera-2048's 1024 walkers, and a fleet whose counts of valid
+        # states differ; the uniforms are drawn once and shared by both
+        # versions, each of which updates its own copy of the walkers
         for nvs, M4, label in (([256], 128, "B1"), ([256] * 8, 128, "B8"),
                                ([256], 1024, "B1_M1024"),
                                ([200, 256, 97, 1, 256, 180, 64, 255], 128,
                                 "B8_ragged")):
-            B = len(nvs)
-            T2 = rand(B, M4, lv * lh).abs() - 0.05 * rand(B, M4, lv * lh).abs()
-            lB = -rand(B, Np, lh, lv).abs() * 30
-            for b, nv in enumerate(nvs):
-                lB[b, nv:] = -float("inf")
-            drindex = torch.stack([torch.randperm(lv * lh, generator=gen)[:Np]
-                                   for _ in range(B)]).to(dev)
-            lidx = torch.randint(0, lh, (B, M4), generator=gen).to(dev)
-            uidx = torch.randint(0, lv, (B, M4), generator=gen).to(dev)
-            nvalid = torch.tensor(nvs, device=dev)
-            u = torch.rand((B, M4), generator=gen,
-                           dtype=torch.float64).to(dev, dtype)
-            args = (T2, lB, drindex, lidx, uidx, nvalid, u)
-            ind_k, mq_k = kernels.sample_draw(*args)
-            ind_p, mq_p = kernels.sample_draw_plain(*args)
-            check(torch.allclose(mq_k, mq_p, rtol=rtol, atol=rtol),
-                  f"K4 sample_draw {name} {label}: mPn differs beyond rtol "
-                  f"{rtol}")
+            a = site_case(gen, nvs, M4, dtype, dev, torch)
+            ka, pa = walkers_copy(a), walkers_copy(a)
+            RL_k, mPn_k = kernels.sample_site(*(ka[k] for k in SITE_KEYS))
+            RL_p, mPn_p = kernels.sample_site_plain(*(pa[k]
+                                                      for k in SITE_KEYS))
+            nx, col = a["nx"], a["col"]
+            ind_k, ind_p = ka["states"][:, :, col], pa["states"][:, :, col]
+            what = f"K4 sample_site {name} {label}"
+            check(torch.allclose(mPn_k, mPn_p, rtol=rtol, atol=rtol),
+                  f"{what}: mPn differs beyond rtol {rtol}")
+            draw_args = (a["T2"], a["lBT"], a["drindex"],
+                         a["vind"][:, :, nx], a["vind"][:, :, nx + 1],
+                         a["nvalid"], a["u"])
             n_bad, unexplained = kernels.sample.draw_mismatches(
-                ind_k, ind_p, args)
+                ind_k, ind_p, draw_args)
             limit = 0 if dtype == torch.float64 else 1e-3 * ind_k.numel()
             check(unexplained == 0 and n_bad <= limit,
-                  f"K4 sample_draw {name} {label}: {n_bad} draws differ, "
-                  f"{unexplained} of them not at a cumulative boundary")
-            check(bool(((ind_k >= 0) & (ind_k < nvalid[:, None])).all()),
-                  f"K4 sample_draw {name} {label}: a draw out of range")
-            print(f"kernel sample_draw {name} {label}: {n_bad} of "
+                  f"{what}: {n_bad} draws differ, {unexplained} of them not "
+                  f"at a cumulative boundary")
+            check(bool(((ind_k >= 0) & (ind_k < a["nvalid"][:, None])).all()),
+                  f"{what}: a draw out of range")
+            same = ind_k == ind_p
+            check(torch.equal(ka["vind"][same], pa["vind"][same])
+                  and torch.equal(ka["states"][same], pa["states"][same]),
+                  f"{what}: walker writes differ where the draws agree")
+            check(torch.allclose(RL_k[same], RL_p[same], rtol=rtol,
+                                 atol=rtol),
+                  f"{what}: RL' differs beyond rtol {rtol}")
+            check(torch.equal(ka["mq"], mPn_k.amin(dim=1)),
+                  f"{what}: mq is not the minimum of the kernel's own mPn")
+            print(f"kernel sample_site {name} {label}: {n_bad} of "
                   f"{ind_k.numel()} draws differ from the plain version, "
                   f"all within 64 eps of a cumulative boundary", flush=True)
-            # about twelve operations per (walker, state): gather, shift,
-            # exp, mask, min, clamp, sum, divide, scan add, compare, count
+            D = a["RL"].shape[2]
+            Np = a["lBT"].shape[-1]
+            # about fifteen operations per (walker, state): gather, shift,
+            # exp, mask, min, clamp, sum, divide, scan add, compare, count;
+            # and the D x D GEMV's multiply-adds
             compare_and_time(
-                out, ("sample_draw", label), name, mq_k, mq_p,
-                lambda: kernels.sample_draw(*args),
-                lambda: kernels.sample_draw_plain(*args),
-                gathered_bytes(*args[:6], torch) + nbytes(u, ind_k, mq_k),
-                12 * B * M4 * Np, torch)
+                out, ("sample_site", label), name, mPn_k, mPn_p,
+                lambda: kernels.sample_site(*(ka[k] for k in SITE_KEYS)),
+                lambda: kernels.sample_site_plain(*(pa[k]
+                                                    for k in SITE_KEYS)),
+                site_bytes(a, ka, RL_k, mPn_k, torch),
+                len(nvs) * M4 * (15 * Np + 2 * D * D), torch,
+                extra_err=[(RL_k[same], RL_p[same])])
     for k, v in out.items():
         for name, cases in v.items():
             for label, r in cases.items():
@@ -440,7 +532,7 @@ def slice_run(tt, torch, J, oracle, dtype, label, cand_factor=8):
           f"launches {counts}", flush=True)
     for k in SEARCH_KERNELS:
         check(counts[k] > 0, f"slice {label}: kernel {k} was not launched")
-    check(counts["sample_draw"] == 0, f"slice {label}: the search drew")
+    check(counts["sample_site"] == 0, f"slice {label}: the search drew")
     return seconds, stages, res, E, counts
 
 
@@ -526,7 +618,7 @@ def fleet_phase(tt, torch):
     o = oracles[0]
     want = dict(gebal=2 * o["Nx"], merge=o["Nx"] * o["Ny"],
                 marginal_epilogue=o["Nx"] * o["Ny"],
-                sample_draw=0)   # pre_steps = 1
+                sample_site=0)   # pre_steps = 1
     runs = {}
     for dtype, labels in ((torch.float64, ["f64"]),
                           (torch.float32, ["f32 cold", "f32 warm 1",
@@ -599,7 +691,7 @@ def sample_run(tt, torch, Js, n, dtype, label, M, seed=0, uniforms=None):
           + " ".join(f"{r['negative_probability']:.3g}" for r in rs),
           flush=True)
     want = dict(gebal=2 * SAMPLE_KW["pre_steps"] * n, merge=0,
-                marginal_epilogue=0, sample_draw=n * n)
+                marginal_epilogue=0, sample_site=n * n)
     check(counts == want, f"sample {label}: launches {counts}, want {want} "
           f"(K4 once per site, K1 once per interface sweep step)")
     for J, ins, r in zip(Js, solvers, rs):
@@ -686,13 +778,12 @@ def sample_phase(tt, torch):
     print(f"f32 e02 fleet vs single runs on the same uniforms: {same} of "
           f"{len(Js)} instances agree in every walker; 8 single runs "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
-    # chimera-2048, 1024 walkers: two timed float32 passes, then float32
-    # and float64 passes with every draw examined
+    # chimera-2048, 1024 walkers: a timed float32 pass, then float32 and
+    # float64 passes with every draw examined
     J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(INSTANCE)), 1 / 75)
     with open(ORACLE) as f:
         E_gs = json.load(f)["energy"]
-    for dtype, label in ((torch.float32, "f32 cold"),
-                         (torch.float32, "f32 warm"),
+    for dtype, label in ((torch.float32, "f32"),
                          (torch.float32, "f32 examined"),
                          (torch.float64, "f64 examined")):
         undo = (examine_draws(tt, torch, 16, f"chimera-2048 {label}")
@@ -718,30 +809,32 @@ def sample_phase(tt, torch):
 
 def examine_draws(tt, torch, Nx, label):
     """Watch K4's draws in the sampler for one pass: after each site's
-    draw, recompute the site's marginals with the plain version on the
+    step, recompute the site's marginals with the plain version on the
     same inputs and count what went wrong. Returns the function that stops
     watching, prints the pass's counts (the walkers that drew from the
     uniform row, mPn = -1, by cause, and the draws of a state whose
     marginal is 0) and returns the number of draws from the uniform row."""
-    from tnax_torch import engine
-    from tnax_torch.kernels.marginal import marginal_pn_plain
-    draw = engine.sample_draw
+    from tnax_torch import parallel
+    from tnax_torch.kernels.marginal import _pn_from_columns, columns
+    site = parallel.sample_site
     rows, tainted = [], []
 
-    def watched(T2, lB, drindex, lidx, uidx, nvalid, u):
-        indc, mPn = draw(T2, lB, drindex, lidx, uidx, nvalid, u)
+    def watched(T2, lBT, drindex, dmap, rmap, nvalid, u, AT, RL, vind,
+                states, nx, col_s, mq):
+        lidx, uidx = vind[:, :, nx].clone(), vind[:, :, nx + 1].clone()
+        out = site(T2, lBT, drindex, dmap, rmap, nvalid, u, AT, RL, vind,
+                   states, nx, col_s, mq)
+        mPn, indc = out[1], states[:, :, col_s]
         B, M = mPn.shape
-        Np, lv = lB.shape[1], lB.shape[3]
-        Pn = marginal_pn_plain(T2, lB, drindex, lidx, uidx, nvalid)[0]
+        Np = lBT.shape[-1]
+        col = columns(lBT, lidx, uidx)
+        Pn = _pn_from_columns(T2, col, drindex, nvalid)[0]
         valid = torch.arange(Np, device=Pn.device) < nvalid[:, None, None]
         top = (nvalid.long() - 1)[:, None, None].expand(B, M, 1)
         above = torch.cumsum(Pn, 2).gather(2, top)[..., 0] < u
         fb = mPn == -1
         zero = (Pn.gather(2, indc.long()[..., None])[..., 0] == 0) & ~fb
         g = T2.gather(2, drindex.long()[:, None, :].expand(B, M, Np))
-        col = lB.reshape(B, Np, -1).gather(2, (
-            lidx.long() * lv + uidx.long())[:, None, :].expand(B, Np, M))
-        col = col.transpose(1, 2)
         shift = col.amax(2, keepdim=True)
         x = col - torch.where(torch.isfinite(shift), shift, 0.0)
         finite = ((torch.isfinite(g) | ~valid).all(2)
@@ -762,10 +855,10 @@ def examine_draws(tt, torch, Nx, label):
             (fb & saturated).sum(), zero.sum(), (zero & above).sum(),
             above.sum()]))
         tainted[0] |= zero
-        return indc, mPn
+        return out
 
     def undo():
-        engine.sample_draw = draw
+        parallel.sample_site = site
         c = torch.stack(rows).cpu()
         tot = c.sum(0).tolist()
 
@@ -785,7 +878,7 @@ def examine_draws(tt, torch, Nx, label):
               f"{first(6)}; {tot[8]} draws with u above the last cumulative "
               f"sum", flush=True)
         return tot[0]
-    engine.sample_draw = watched
+    parallel.sample_site = watched
     return undo
 
 
@@ -827,7 +920,7 @@ def main():
     with open(ORACLE) as f:
         oracle = json.load(f)
     runs = {}
-    for dtype, labels in ((torch.float64, ["f64 cold", "f64 warm"]),
+    for dtype, labels in ((torch.float64, ["f64"]),
                           (torch.float32, ["f32 cold", "f32 warm 1",
                                            "f32 warm 2", "f32 warm 3"])):
         for label in labels:
@@ -865,14 +958,14 @@ def main():
                      "tnax/parallel.py:149"),
            "marginal_epilogue": ("cuda", "tnax_torch/kernels/csrc/marginal.cu",
                                  "tnax/engine.py:382"),
-           "sample_draw": ("cuda", "tnax_torch/kernels/csrc/sample.cu",
-                           "tnax/parallel.py:1295")}
+           "sample_site": ("cuda", "tnax_torch/kernels/csrc/sample.cu",
+                           "tnax/parallel.py:1290")}
     summary = []
     for name, (route, source, replaces) in src.items():
         r = kres[name]["float32"]["B8"]
         summary.append(dict(name=name, route=route, source=source,
                             replaces=replaces,
-                            launches=(sample if name == "sample_draw"
+                            launches=(sample if name == "sample_site"
                                       else fleet)[name],
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

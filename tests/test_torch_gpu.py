@@ -1,6 +1,7 @@
 """The port's kernels against their plain PyTorch versions on a CUDA
 card, at the flagship shapes and batched at the fleet's, in float32 and
-float64 (K2 also up to the full expansion, K4 at the sampler's shapes). Marked ``gpu`` and
+float64 (K1 also at n = 9, 16, 17, 32 and on an extreme case, K2 up to
+the full expansion, K4 at the sampler's shapes). Marked ``gpu`` and
 skipped without a card. This file imports neither jax nor tnax, so it
 runs where only the port is installed:
 
@@ -24,6 +25,20 @@ def _t(a):
 def _badly_scaled(rng, n):
     A = rng.standard_normal((n, n))
     return A * np.exp2(rng.integers(-20, 20, size=(n, 1)))
+
+
+def _extreme_gebal(rng, n, count=4):
+    """Badly balanced n x n matrices for K1: a similarity scaling
+    2^(k_i - k_j), k in [-25, 25], so that the entries span 2^-50 ..
+    2^50, with row 2 and column 5 zero; nd = n, n, n - 3, n // 2."""
+    As = []
+    for _ in range(count):
+        k = rng.integers(-25, 26, size=n)
+        A = rng.standard_normal((n, n)) * np.exp2(k[:, None] - k[None, :])
+        A[2, :] = 0.0
+        A[:, 5] = 0.0
+        As.append(A)
+    return np.stack(As), np.array([n, n, n - 3, n // 2][:count])
 
 
 def _candidates(rng, M, C, Nx, bits):
@@ -81,6 +96,32 @@ def test_gebal_kernel_matches_plain(cuda, dtype):
     got = kernels.gebal_scale(A, nd, 32.0)
     assert kernels.gebal_scale.launches == before + 1
     assert torch.equal(got, kernels.gebal_scale_plain(A, nd, 32.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [9, 16, 17, 32])
+@pytest.mark.parametrize("case", ["badly_scaled", "extreme"])
+def test_gebal_kernel_any_size_matches_plain(cuda, dtype, n, case):
+    """K1 at n <= 16 (two matrices per warp) and 17..32 (one), on 15
+    badly scaled matrices with one nd < n and on the extreme case, nd as
+    int64 and as a strided int32 column: the plain version's scales bit
+    for bit."""
+    rng = np.random.default_rng(n)
+    if case == "extreme":
+        As, nds = _extreme_gebal(rng, n)
+    else:
+        As = np.stack([_badly_scaled(rng, n) for _ in range(15)])
+        nds = np.array([n] * 14 + [n - 4])
+    A = _t(As).to(cuda, dtype)
+    want = kernels.gebal_scale_plain(A, _t(nds).to(cuda), 1e30)
+    for nd in (_t(nds).to(cuda),
+               _t(np.stack([nds, nds]).T).to(cuda, torch.int32)[:, 1]):
+        assert torch.equal(kernels.gebal_scale(A, nd, 1e30), want)
+    # a batch given transposed (non-contiguous matrices) and clipped
+    At = A.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(kernels.gebal_scale(At, _t(nds).to(cuda), 32.0),
+                       kernels.gebal_scale_plain(A, _t(nds).to(cuda), 32.0))
 
 
 @pytest.mark.gpu
@@ -239,17 +280,71 @@ def test_marginal_kernel_matches_plain(cuda, dtype, nvalids):
     assert torch.equal(mqc, torch.where(core, mPn, 0.0).amin(dim=1))
 
 
-def _draw_args(rng, cuda, dtype, nvalids, M):
-    """K4's inputs at full width (Np=256, lh=lv=16, D=32) for one
-    instance per entry of ``nvalids``, with uniforms in the dtype."""
-    ins = [_marginal_inputs(rng, M=M, Np=256, lh=16, lv=16, D=32,
+def _site_args(rng, cuda, dtype, nvalids, M, D):
+    """K4's inputs at full width (Np=256, lh=lv=16) for one instance per
+    entry of ``nvalids``, as the sampler holds them: T2 from the two GEMMs,
+    the table with the states last, int64 drindex/nvalid, int32 dmap,
+    rmap, vind and states; uniforms in the dtype, mq = +inf."""
+    ins = [_marginal_inputs(rng, M=M, Np=256, lh=16, lv=16, D=D,
                             nvalid=nv) for nv in nvalids]
+    B = len(nvalids)
     lB, drindex, AT, RL, RRsel, lidx, uidx = (
         _t(np.stack(x)).to(cuda) for x in list(zip(*ins))[:7])
-    T2 = engine._marginal_T2(*(x.to(dtype) for x in (AT, RL, RRsel)))
-    return (T2, lB.to(dtype), drindex, lidx, uidx,
-            torch.tensor(nvalids, device=cuda),
-            _t(rng.random((len(nvalids), M))).to(cuda, dtype))
+    AT, RL = AT.to(dtype), RL.to(dtype)
+    vind = _t(rng.integers(0, 16, size=(B, M, 17)).astype(np.int32)).to(cuda)
+    vind[:, :, 5], vind[:, :, 6] = lidx, uidx
+    return dict(
+        T2=engine._marginal_T2(AT, RL, RRsel.to(dtype)),
+        lBT=kernels.marginal.boltzmann_columns(lB.to(dtype)),
+        drindex=drindex.long(),
+        dmap=_t(rng.integers(0, 16, size=(B, 256)).astype(np.int32)).to(cuda),
+        rmap=_t(rng.integers(0, 16, size=(B, 256)).astype(np.int32)).to(cuda),
+        nvalid=torch.tensor(nvalids, device=cuda),
+        u=_t(rng.random((B, M))).to(cuda, dtype), AT=AT, RL=RL, vind=vind,
+        states=torch.zeros((B, M, 256), dtype=torch.int32, device=cuda),
+        nx=5, col=37,
+        mq=torch.full((B,), float("inf"), dtype=dtype, device=cuda))
+
+
+SITE_KEYS = ("T2", "lBT", "drindex", "dmap", "rmap", "nvalid", "u", "AT",
+             "RL", "vind", "states", "nx", "col", "mq")
+
+
+def site_check(a, dtype):
+    """Run K4 and its plain version on copies of the inputs ``a``; check
+    the draws by ``draw_mismatches``, vind and states exactly where the
+    draws agree, RL' within rtol there, mPn within rtol, mq exactly the
+    minimum of the kernel's own mPn. Returns (draws that differ, draws)."""
+    ka = dict(a, vind=a["vind"].clone(), states=a["states"].clone(),
+              mq=a["mq"].clone())
+    pa = dict(a, vind=a["vind"].clone(), states=a["states"].clone(),
+              mq=a["mq"].clone())
+    before = kernels.sample_site.launches
+    RL_k, mPn_k = kernels.sample_site(*(ka[k] for k in SITE_KEYS))
+    assert kernels.sample_site.launches == before + 1
+    RL_p, mPn_p = kernels.sample_site_plain(*(pa[k] for k in SITE_KEYS))
+    nx, col = a["nx"], a["col"]
+    ind_k, ind_p = ka["states"][:, :, col], pa["states"][:, :, col]
+    args = (a["T2"], a["lBT"], a["drindex"],
+            a["vind"][:, :, nx], a["vind"][:, :, nx + 1], a["nvalid"], a["u"])
+    n_bad, unexplained = kernels.sample.draw_mismatches(ind_k, ind_p, args)
+    assert unexplained == 0
+    assert n_bad <= (0 if dtype == torch.float64 else 1e-3 * ind_k.numel())
+    assert bool(((ind_k >= 0) & (ind_k < a["nvalid"][:, None])).all())
+    same = ind_k == ind_p
+    assert torch.equal(ka["states"][same], pa["states"][same])
+    assert torch.equal(ka["vind"][same], pa["vind"][same])
+    others = torch.ones_like(ka["states"], dtype=torch.bool)
+    others[:, :, col] = False
+    assert torch.equal(ka["states"][others], a["states"][others])
+    keep = torch.ones_like(ka["vind"], dtype=torch.bool)
+    keep[:, :, nx:nx + 2] = False
+    assert torch.equal(ka["vind"][keep], a["vind"][keep])
+    rtol = _rtol(dtype)
+    torch.testing.assert_close(RL_k[same], RL_p[same], rtol=rtol, atol=rtol)
+    torch.testing.assert_close(mPn_k, mPn_p, rtol=rtol, atol=rtol)
+    assert torch.equal(ka["mq"], torch.minimum(a["mq"], mPn_k.amin(dim=1)))
+    return n_bad, ind_k.numel()
 
 
 # (counts of valid states per instance, walkers): the e02 single run and
@@ -262,21 +357,57 @@ DRAW_CASES = {"B1_M128": ([256], 128), "B8_M128": ([256] * 8, 128),
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", sorted(DRAW_CASES))
-def test_sample_draw_kernel_matches_plain(cuda, dtype, case):
+@pytest.mark.parametrize("D", [32, 48])
+def test_sample_site_kernel_matches_plain(cuda, dtype, case, D):
     nvalids, M = DRAW_CASES[case]
-    args = _draw_args(np.random.default_rng(3), cuda, dtype, nvalids, M)
-    before = kernels.sample_draw.launches
-    indc, mPn = kernels.sample_draw(*args)
-    assert kernels.sample_draw.launches == before + 1
-    indc_p, mPn_p = kernels.sample_draw_plain(*args)
-    torch.testing.assert_close(mPn, mPn_p, rtol=_rtol(dtype),
-                               atol=_rtol(dtype))
-    n_bad, unexplained = kernels.sample.draw_mismatches(indc, indc_p,
-                                                        args)
-    assert unexplained == 0
-    assert n_bad <= (0 if dtype == torch.float64 else 1e-3 * indc.numel())
-    assert bool((indc >= 0).all())
-    assert bool((indc < args[5][:, None]).all())
+    site_check(_site_args(np.random.default_rng(3), cuda, dtype, nvalids, M,
+                          D), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Np", [16, 100, 1000])
+def test_sample_site_kernel_other_widths(cuda, Np):
+    """K4 at a narrow row (one state per lane), a ragged one (padding
+    states) and one held in shared memory, float64, D = 8."""
+    rng = np.random.default_rng(Np)
+    B, M, lh, lv, D = 2, 64, 4, 8, 8
+    nvalids = [Np, Np // 2 + 1]
+    lB = -np.abs(rng.standard_normal((B, Np, lh, lv))) * 30
+    lB[1, Np // 2 + 1:] = -np.inf
+    T2 = np.abs(rng.standard_normal((B, M, lh * lv)))
+    T2[:, ::7] -= 0.5
+    a = dict(
+        T2=_t(T2).to(cuda),
+        lBT=kernels.marginal.boltzmann_columns(_t(lB).to(cuda)),
+        drindex=_t(rng.integers(0, lh * lv, size=(B, Np))).to(cuda),
+        dmap=_t(rng.integers(0, lv, size=(B, Np)).astype(np.int32)).to(cuda),
+        rmap=_t(rng.integers(0, lh, size=(B, Np)).astype(np.int32)).to(cuda),
+        nvalid=torch.tensor(nvalids, device=cuda),
+        u=_t(rng.random((B, M))).to(cuda),
+        AT=_t(rng.standard_normal((B, D, lv, D))).to(cuda),
+        RL=_t(rng.standard_normal((B, M, D))).to(cuda),
+        vind=_t(np.stack([rng.integers(0, lh, size=(B, M)),
+                          rng.integers(0, lv, size=(B, M))], axis=2)
+                .astype(np.int32)).to(cuda),
+        states=torch.zeros((B, M, 3), dtype=torch.int32, device=cuda),
+        nx=0, col=1,
+        mq=torch.full((B,), float("inf"), dtype=torch.float64, device=cuda))
+    site_check(a, torch.float64)
+
+
+@pytest.mark.gpu
+def test_sample_site_kernel_refuses_wrong_inputs(cuda):
+    a = _site_args(np.random.default_rng(4), cuda, torch.float32, [256], 32,
+                   32)
+    bad = [dict(drindex=a["drindex"].int()), dict(dmap=a["dmap"].long()),
+           dict(vind=a["vind"].long()), dict(u=a["u"].double()),
+           dict(mq=a["mq"][:0]), dict(col=256), dict(nx=16),
+           dict(states=a["states"].transpose(1, 2).contiguous()
+                .transpose(1, 2)),
+           dict(AT=a["AT"].cpu())]
+    for change in bad:
+        with pytest.raises(ValueError):
+            kernels.sample_site(*(dict(a, **change)[k] for k in SITE_KEYS))
 
 
 @pytest.mark.gpu

@@ -44,12 +44,17 @@ def test_wrappers_count_no_launch_on_cpu():
     kernels.gebal_scale(A[None], torch.tensor([4]), 32.0)
     T2 = torch.ones((1, 3, 4), dtype=torch.float64)
     lB = torch.zeros((1, 4, 2, 2), dtype=torch.float64)
-    indc, _ = kernels.sample_draw(T2, lB, torch.arange(4)[None],
-                                  torch.zeros((1, 3), dtype=torch.int64),
-                                  torch.zeros((1, 3), dtype=torch.int64),
-                                  torch.tensor([4]),
-                                  torch.tensor([[0.0, 0.3, 0.99]]))
-    assert indc.tolist() == [[0, 1, 3]]
+    states = torch.zeros((1, 3, 1), dtype=torch.int32)
+    kernels.sample_site(
+        T2, lB.movedim(1, -1), torch.arange(4)[None],
+        torch.zeros((1, 4), dtype=torch.int32),
+        torch.zeros((1, 4), dtype=torch.int32), torch.tensor([4]),
+        torch.tensor([[0.0, 0.3, 0.99]], dtype=torch.float64),
+        torch.ones((1, 2, 2, 2), dtype=torch.float64),
+        torch.ones((1, 3, 2), dtype=torch.float64),
+        torch.zeros((1, 3, 2), dtype=torch.int32), states, 0, 0,
+        torch.zeros(1, dtype=torch.float64))
+    assert states[..., 0].tolist() == [[0, 1, 3]]
     key1 = torch.tensor([[3, 1, 3, 0]], dtype=torch.int32)
     perm = kernels.merge_segments(
         key1, torch.zeros((1, 4), dtype=torch.float64), torch.zeros((1, 4)),
@@ -65,7 +70,7 @@ def test_wrappers_count_no_launch_on_cpu():
     assert pmax.tolist() == [-2.0]
     assert kernels.launch_counts() == dict(gebal=0, merge=0,
                                            marginal_epilogue=0,
-                                           sample_draw=0)
+                                           sample_site=0)
 
 
 def _run_smoke(cwd):

@@ -167,7 +167,8 @@ def test_sample_rows_matches_tnax():
         {k: jnp.asarray(v) for k, v in row.items()}, key, M=Mw, Nx=Nx)
     u = tnax_uniforms(key, Nx, Mw)
     rowt = {k: torch.as_tensor(v)[None] for k, v in row.items()
-            if k != "cols"}
+            if k not in ("cols", "lB")}
+    rowt["lBT"] = kernels.marginal.boltzmann_columns(torch.as_tensor(lB)[None])
     rowt["cols"] = cols.tolist()
     beam = dict(RL=torch.as_tensor(RL)[None], vind=torch.as_tensor(vind)[None],
                 states=torch.as_tensor(states)[None])
@@ -195,9 +196,10 @@ def _tnax_draw(lB, drindex, AT, RL, RRsel, lidx, uidx, nvalid, u):
 
 @pytest.mark.parametrize("case", ["valid", "full", "zero_rows"])
 def test_sample_draw_plain_matches_tnax(case):
-    """Three instances in one batch, each against tnax: some states past
-    nvalid, all states valid, and rows whose marginals are all zero (the
-    uniform row); uniforms include 0 and the largest float below 1."""
+    """Three instances in one batch through K4's wrapper on CPU tensors (its
+    plain version), each draw against tnax's: some states past nvalid, all
+    states valid, and rows whose marginals are all zero (the uniform row);
+    uniforms include 0 and the largest float below 1."""
     rng = np.random.default_rng(dict(valid=40, full=41, zero_rows=42)[case])
     nvs = dict(valid=(13, 9, 1), full=(16, 16, 16),
                zero_rows=(13, 16, 7))[case]
@@ -210,18 +212,27 @@ def test_sample_draw_plain_matches_tnax(case):
     lB, drindex, AT, RL, RRsel, lidx, uidx = (
         torch.as_tensor(np.stack(x)) for x in list(zip(*ins))[:7])
     T2 = engine._marginal_T2(AT, RL, RRsel)
-    got = kernels.sample_draw(T2, lB, drindex, lidx, uidx,
-                              torch.tensor(nvs), torch.as_tensor(u))
-    assert got[0].dtype == torch.int32
+    nx, col = 1, 2
+    vind = torch.zeros((3, 48, 4), dtype=torch.int32)
+    vind[:, :, nx], vind[:, :, nx + 1] = lidx, uidx
+    states = torch.zeros((3, 48, 5), dtype=torch.int32)
+    dmap = torch.as_tensor(rng.integers(0, 4, size=(3, 16)), dtype=torch.int32)
+    mq = torch.full((3,), np.inf, dtype=torch.float64)
+    before = kernels.sample_site.launches
+    _, mPn = kernels.sample_site(
+        T2, kernels.marginal.boltzmann_columns(lB), drindex.long(), dmap,
+        dmap.flip(1), torch.tensor(nvs), torch.as_tensor(u), AT, RL, vind,
+        states, nx, col, mq)
     for b in range(3):
-        indc, mPn = _tnax_draw(*ins[b][:7], nvs[b], u[b])
-        assert np.array_equal(got[0][b].numpy(), indc), b
-        np.testing.assert_allclose(got[1][b].numpy(), mPn, rtol=1e-12,
+        indc, mPn_t = _tnax_draw(*ins[b][:7], nvs[b], u[b])
+        assert np.array_equal(states[b, :, col].numpy(), indc), b
+        np.testing.assert_allclose(mPn[b].numpy(), mPn_t, rtol=1e-12,
                                    atol=1e-15)
-        assert got[0][b].max() <= nvs[b] - 1
+        assert states[b, :, col].max() <= nvs[b] - 1
+    assert torch.equal(mq, mPn.amin(dim=1))
     if case == "zero_rows":
-        assert bool((got[1][:, ::3] == -1.0).all())
-    assert kernels.sample_draw.launches == 0
+        assert bool((mPn[:, ::3] == -1.0).all())
+    assert kernels.sample_site.launches == before
 
 
 def test_draw_mismatches_explains_only_boundary_draws():
@@ -229,10 +240,10 @@ def test_draw_mismatches_explains_only_boundary_draws():
     version's is explained only where the cumulative sums between the two
     indices lie within 64 eps of the uniform."""
     T2 = torch.ones((1, 2, 4), dtype=torch.float64)
-    lB = torch.zeros((1, 4, 2, 2), dtype=torch.float64)
+    lBT = torch.zeros((1, 2, 2, 4), dtype=torch.float64)
     idx = torch.zeros((1, 2), dtype=torch.int64)
     u = torch.tensor([[0.5 + 1e-16, 0.3]], dtype=torch.float64)
-    args = (T2, lB, torch.arange(4)[None], idx, idx, torch.tensor([4]), u)
+    args = (T2, lBT, torch.arange(4)[None], idx, idx, torch.tensor([4]), u)
     want, _ = kernels.sample_draw_plain(*args)
     assert want.tolist() == [[2, 1]]
     # walker 0's u sits on the boundary cums[1] = 0.5; walker 1's does not
@@ -319,4 +330,4 @@ def test_sampler_needs_a_device_by_default(monkeypatch):
                                      beta=BETA, J=J), M=8)
     meta = torch.zeros((1, 2, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        kernels.sample_draw(meta, *(None,) * 6)
+        kernels.sample_site(meta, *(None,) * 13)

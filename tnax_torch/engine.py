@@ -23,7 +23,6 @@ import torch
 
 from . import bmps
 from .kernels import marginal as _marginal
-from .kernels.sample import sample_draw
 from .problems import Problem
 
 
@@ -196,7 +195,9 @@ def row_right_envs(AT_row, Wt_row, uidx):
     (B, Nx, lh, lv, lh, lv) traced tensors of the row; uidx (B, M, Nx)
     up-leg indices per branch per site. Returns RRs (B, Nx, M, D, lh):
     RRs[b, nx, m] is the environment of sites nx+1..Nx-1 (trivial at
-    nx = Nx-1), each rescaled to max |entry| 1.
+    nx = Nx-1), each rescaled to max |entry| 1. The stack is site-major
+    in memory, so one site's (B, M, D, lh) slice is contiguous and the
+    sampler's second GEMM reads it without a copy.
     """
     B, Nx, D, lv, _ = AT_row.shape
     lh = Wt_row.shape[2]
@@ -210,7 +211,7 @@ def row_right_envs(AT_row, Wt_row, uidx):
         scale = new.abs().amax(dim=(2, 3), keepdim=True)
         rr = new / torch.where(scale > 0, scale, 1.0)
         RRs[s - 1] = rr
-    return torch.stack(RRs, dim=1)
+    return torch.stack(RRs).transpose(0, 1)
 
 
 def _marginal_T2(AT, RL, RRsel):
@@ -249,15 +250,6 @@ def marginal_probf(lBT, drindex, AT, RL, RRsel, lidx, uidx, nvalid, prob,
     T2 = _marginal_T2(AT, RL, RRsel)
     return _marginal.marginal_epilogue(T2, lBT, drindex, lidx, uidx, nvalid,
                                        prob, valid, log2_cutoff)
-
-
-def marginal_draw(lB, drindex, AT, RL, RRsel, lidx, uidx, nvalid, u):
-    """:func:`marginal_step` followed by one inverse-CDF draw per walker,
-    the sampling counterpart of :func:`marginal_probf`. u (B, M) uniforms
-    in [0, 1). Returns (indc (B, M) int32, mPn (B, M)). Everything after
-    the GEMMs is kernel K4 on CUDA."""
-    T2 = _marginal_T2(AT, RL, RRsel)
-    return sample_draw(T2, lB, drindex, lidx, uidx, nvalid, u)
 
 
 def rl_update(RL, AT, didx):

@@ -4,10 +4,11 @@
 K1     ``gebal.gebal_scale``                CUDA C++ (csrc/gebal.cu)
 K2     ``merge.merge_segments``             CUDA C++ (csrc/merge.cu)
 K3     ``marginal.marginal_epilogue``       CUDA C++ (csrc/marginal.cu)
-K4     ``sample.sample_draw``               CUDA C++ (csrc/sample.cu)
+K4     ``sample.sample_site``               CUDA C++ (csrc/sample.cu)
 =====  ===================================  ==========================
 
-Each wrapper runs its plain PyTorch version for CPU tensors, launches its
+K3 and K4 share the marginal epilogue, ``csrc/epilogue.cuh``. Each
+wrapper runs its plain PyTorch version for CPU tensors, launches its
 kernel for CUDA tensors (or raises), and counts its launches in the
 integer attribute ``launches``.
 """
@@ -15,11 +16,11 @@ integer attribute ``launches``.
 from .gebal import gebal_scale, gebal_scale_plain
 from .marginal import marginal_epilogue, marginal_epilogue_plain
 from .merge import merge_segments, merge_segments_plain
-from .sample import sample_draw, sample_draw_plain
+from .sample import sample_draw_plain, sample_site, sample_site_plain
 
 WRAPPERS = {"gebal": gebal_scale, "merge": merge_segments,
             "marginal_epilogue": marginal_epilogue,
-            "sample_draw": sample_draw}
+            "sample_site": sample_site}
 
 
 def reset_launch_counts() -> None:
@@ -33,5 +34,6 @@ def launch_counts() -> dict:
 
 __all__ = ["gebal_scale", "gebal_scale_plain", "marginal_epilogue",
            "marginal_epilogue_plain", "merge_segments",
-           "merge_segments_plain", "sample_draw", "sample_draw_plain",
-           "WRAPPERS", "reset_launch_counts", "launch_counts"]
+           "merge_segments_plain", "sample_draw_plain", "sample_site",
+           "sample_site_plain", "WRAPPERS", "reset_launch_counts",
+           "launch_counts"]

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` file has a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/tnax_torch/`` at the
 root of the checkout (listed in ``.gitignore``), under a name that
-carries a hash of the source, and loaded with ``ctypes``. Pointers and
-the CUDA stream go in as ``c_void_p``; every entry point returns
-``cudaGetLastError()``, which :func:`check` turns into an exception.
+carries a hash of the source and of the shared headers ``csrc/*.cuh``,
+and loaded with ``ctypes``. Pointers and the CUDA stream go in as
+``c_void_p``; every entry point returns ``cudaGetLastError()``, which
+:func:`check` turns into an exception.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ def _nvcc() -> str:
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` (once per source version) and load it."""
     src = CSRC / f"{name}.cu"
-    text = src.read_bytes()
+    text = src.read_bytes() + b"".join(h.read_bytes()
+                                       for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     lib = BUILD_DIR / f"lib{name}_{digest[:12]}.so"
     if not lib.exists():
@@ -73,15 +75,6 @@ def check(dll: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = dll.tnax_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
-
-
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def stream(device) -> ctypes.c_void_p:
-    import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def raw_stream(device) -> int:

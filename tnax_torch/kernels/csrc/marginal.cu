@@ -4,7 +4,8 @@
 // Replaces tnax/engine.py `marginal_step`'s elementwise tail (after its two
 // GEMMs) and the search's log2-probabilities and row reductions of
 // tnax/parallel.py `row_step` (logP, probf, pmax, and the negativeness
-// flags mq and mqc), vmapped over the fleet's instances. Warp (b, m)
+// flags mq and mqc), vmapped over the fleet's instances. Steps 1-4 are
+// epilogue.cuh's, which K4 (sample.cu) shares. Warp (b, m)
 //   1. reads the Boltzmann column lBT[b, lidx, uidx, :] of its Np states
 //      (contiguous: the table is transposed once per search) into its
 //      share of shared memory, and takes the column's maximum (0 when it
@@ -41,58 +42,18 @@
 
 #include <cuda_runtime.h>
 #include <algorithm>
-#include <cfloat>
 #include <cstdint>
+
+#include "epilogue.cuh"
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
+using tnax::Max;
+using tnax::Min;
+using tnax::Num;
+
 constexpr int kMaxWarps = 8;
 constexpr int kRowBytes = 48 * 1024;   // static limit of a block's rows
-
-template <typename T>
-struct Num;
-
-template <>
-struct Num<float> {
-  __device__ static float ninf() {
-    return __int_as_float(static_cast<int>(0xff800000u));
-  }
-  __device__ static float big() { return FLT_MAX; }
-  __device__ static float ex(float x) { return expf(x); }
-  __device__ static float lg2(float x) { return log2f(x); }
-};
-
-template <>
-struct Num<double> {
-  __device__ static double ninf() {
-    return __longlong_as_double(0xfff0000000000000LL);
-  }
-  __device__ static double big() { return DBL_MAX; }
-  __device__ static double ex(double x) { return exp(x); }
-  __device__ static double lg2(double x) { return log2(x); }
-};
-
-struct Max {
-  template <typename T>
-  __device__ T operator()(T a, T b) const { return b > a ? b : a; }
-};
-struct Min {
-  template <typename T>
-  __device__ T operator()(T a, T b) const { return b < a ? b : a; }
-};
-struct Sum {
-  template <typename T>
-  __device__ T operator()(T a, T b) const { return a + b; }
-};
-
-// Reduce v over the warp; every lane returns the same bits (a + b == b + a).
-template <typename T, typename Op>
-__device__ T warp_all(T v, Op op) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = op(v, __shfl_xor_sync(FULL, v, off));
-  return v;
-}
 
 // An unsigned image of x that orders as x does.
 __device__ unsigned long long ordered(double x) {
@@ -150,65 +111,32 @@ marginal_kernel(Args<T> a) {
     T bmax = Num<T>::ninf();
     for (int j = lane; j < a.M; j += 32)
       bmax = Max()(bmax, vb[j] ? pb[j] : a.neg);
-    bmax = warp_all(bmax, Max());
+    bmax = tnax::warp_all(bmax, Max());
 
-    // 1. the Boltzmann column and its maximum over all Np states
+    // 1-4. the marginals (epilogue.cuh), the row in shared memory with
+    // the states lane, lane + 32, ...
     const int Np = a.Np;
     const int nv = static_cast<int>(a.nvalid[b * a.nv_b]);
     const T* col = a.lBT + b * a.lbt_b + (a.lidx[r] * a.lv + a.uidx[r]) * Np;
     const T* t2 = a.T2 + b * a.t2_b + static_cast<long long>(m) * a.lhlv;
-    const int64_t* dr = a.dr + b * a.dr_b;
-    T lmax = Num<T>::ninf();
-    for (int s = lane; s < Np; s += 32) {
-      const T x = col[s];
-      P[s] = x;
-      lmax = Max()(lmax, x);
-    }
-    T shift = warp_all(lmax, Max());
-    if (!(shift >= -Num<T>::big() && shift <= Num<T>::big()))
-      shift = T(0);  // not finite
+    tnax::SmemRow<T, false> row(P, lane, (Np + 31) / 32);
+    const tnax::Epilogue<T> e =
+        tnax::marginal_row<T>(row, col, t2, a.dr + b * a.dr_b, Np, nv);
+    const T mPn = e.mPn;
 
-    // 2-3. the masked marginals, their minimum, the clamp
-    T lmin = Num<T>::big();
-    for (int s = lane; s < Np; s += 32) {
-      const T p = s < nv ? t2[dr[s]] * Num<T>::ex(P[s] - shift) : T(0);
-      P[s] = p;
-      if (s < nv) lmin = Min()(lmin, p);
-    }
-    T mPn = warp_all(lmin, Min());
-    const bool neg = mPn < T(0);
-    const T amin = neg ? -mPn : mPn;
-    int lclip = 0;
-    T lsum = T(0);
-    for (int s = lane; s < Np; s += 32) {
-      T p = P[s];
-      if (neg && s < nv && p < amin) {
-        p = amin;
-        P[s] = p;
-        ++lclip;
-      }
-      lsum += p;
-    }
-    const int nclip = warp_all(lclip, Sum());
-    const T no = warp_all(lsum, Sum());
-    if (neg) mPn *= static_cast<T>(nclip);
-
-    // 4-5. normalization (or the uniform row), log2, the branch's prob
-    const bool good = no > T(0);
-    mPn = good ? mPn / no : T(-1);
-    const T unif = T(1) / static_cast<T>(nv);
+    // 5. log2 of the normalized marginals, the branch's prob
     const bool vr = a.valid[r] != 0;
     const T pr = a.prob[r];
     T* out = a.probf + r * Np;
     T lp = Num<T>::ninf();
     for (int s = lane; s < Np; s += 32) {
-      const T q = good ? P[s] / no : (s < nv ? unif : T(0));
+      const T q = e.pn(P[s], s, nv);
       const T lg = q > T(0) ? Num<T>::lg2(q) : a.neg;
       const T o = vr ? pr + lg : a.neg;
       out[s] = o;
       lp = Max()(lp, o);
     }
-    lp = warp_all(lp, Max());
+    lp = tnax::warp_all(lp, Max());
 
     // 6. this row's terms of the instance's reductions
     if (lane == 0) {

@@ -73,36 +73,43 @@ def gebal_scale_plain(A, nd, max_scale):
     return scale.reshape(shape[:-1])
 
 
+# the entry points' arguments: A and its batch, row and column strides, nd
+# with its stride and width flag, max_scale, n, the batch, out, the stream
+_ARGS = ((ctypes.c_void_p,) + (ctypes.c_longlong,) * 3
+         + (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_double,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p))
+
+
 def gebal_scale(A, nd, max_scale):
-    """Balancing scales; the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors. See :func:`gebal_scale_plain`."""
+    """Balancing scales; the CUDA kernel on CUDA tensors (one launch, one
+    matrix per half-warp for n <= 16), the plain version on CPU tensors.
+    See :func:`gebal_scale_plain`. On the card ``nd`` is an int32 or int64
+    tensor, read in place at any stride, as is ``A``."""
     if A.device.type == "cpu":
         return gebal_scale_plain(A, nd, max_scale)
     if A.device.type != "cuda":
         raise ValueError(f"gebal_scale: unsupported device {A.device}")
     shape = A.shape
     n = shape[-1]
-    if shape[-2] != n or n > 32:
+    if A.dim() < 2 or shape[-2] != n or not 1 <= n <= 32:
         raise ValueError(f"gebal_scale: need square matrices with n <= 32, "
                          f"got {tuple(shape)}")
     if A.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"gebal_scale: unsupported dtype {A.dtype}")
-    A = A.reshape(-1, n, n).contiguous()
-    nd = torch.as_tensor(nd, device=A.device).reshape(-1).to(
-        torch.int32).contiguous()
+    A = A.reshape(-1, n, n)
+    nd = torch.as_tensor(nd, device=A.device).reshape(-1)
+    if nd.dtype not in (torch.int32, torch.int64) or nd.device != A.device:
+        raise ValueError(f"gebal_scale: nd must be int32 or int64 on "
+                         f"{A.device}, got {nd.dtype} on {nd.device}")
     if nd.shape[0] != A.shape[0]:
         raise ValueError("gebal_scale: one nd per matrix")
     out = torch.empty(A.shape[:2], dtype=A.dtype, device=A.device)
-    dll = build.load("gebal")
-    fn = dll.tnax_gebal_f64 if A.dtype == torch.float64 else \
-        dll.tnax_gebal_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_double,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(build.ptr(A), build.ptr(nd), float(max_scale), n, A.shape[0],
-             build.ptr(out), build.stream(A.device))
-    build.check(dll, err, "gebal_scale")
+    fn = build.fn("gebal", "tnax_gebal_f64" if A.dtype == torch.float64
+                  else "tnax_gebal_f32", _ARGS)
+    err = fn(A.data_ptr(), *A.stride(), nd.data_ptr(), nd.stride(0),
+             int(nd.dtype == torch.int64), float(max_scale), n, A.shape[0],
+             out.data_ptr(), build.raw_stream(A.device))
+    build.check(build.load("gebal"), err, "gebal_scale")
     gebal_scale.launches += 1
     return out.reshape(shape[:-1])
 

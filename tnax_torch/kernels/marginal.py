@@ -27,6 +27,15 @@ def boltzmann_columns(lB):
     return lB.movedim(-3, -1).contiguous()
 
 
+def columns(lBT, lidx, uidx):
+    """Each branch's Boltzmann column from the table with the states last,
+    lBT (B, lh, lv, Np), and the branches' leg values lidx/uidx (B, M):
+    (B, M, Np)."""
+    B, lh, lv, Np = lBT.shape
+    col = (lidx.long() * lv + uidx.long())[:, :, None].expand(-1, -1, Np)
+    return torch.gather(lBT.reshape(B, lh * lv, Np), 1, col)
+
+
 def _pn_from_columns(T2, lBlu, drindex, nvalid):
     """Normalized marginals from each branch's Boltzmann column lBlu
     (B, M, Np); see :func:`marginal_pn_plain`."""
@@ -87,10 +96,8 @@ def marginal_epilogue_plain(T2, lBT, drindex, lidx, uidx, nvalid, prob,
     valid prob plus ``log2_cutoff``).
     """
     B, M = T2.shape[:2]
-    lh, lv, Np = lBT.shape[1:]
-    col = (lidx.long() * lv + uidx.long())[:, :, None].expand(B, M, Np)
-    lBlu = torch.gather(lBT.reshape(B, lh * lv, Np), 1, col)
-    Pn, mPn = _pn_from_columns(T2, lBlu, drindex, nvalid)
+    Np = lBT.shape[-1]
+    Pn, mPn = _pn_from_columns(T2, columns(lBT, lidx, uidx), drindex, nvalid)
     logP = torch.where(Pn > 0, torch.log2(torch.where(Pn > 0, Pn, 1.0)), NEG)
     probf = torch.where(valid[..., None], prob[..., None] + logP, NEG)
     # negativeness only from live branches, and (core) only from those

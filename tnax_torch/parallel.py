@@ -41,6 +41,7 @@ from . import engine
 from . import precondition as pre
 from .kernels.marginal import boltzmann_columns
 from .kernels.merge import merge_segments, segment_stats_plain
+from .kernels.sample import sample_site
 
 NEG = -1e30  # effectively -inf log2 probability
 
@@ -541,41 +542,41 @@ def flagship_search_gs(ins, M=2 ** 10, relative_P_cutoff=1e-6,
 def sample_rows(beam, row, u_row, *, M, Nx):
     """One lattice row of Gibbs sampling for the M walkers of each of B
     instances (tnax parallel.py:1283-1313, with the instance axis): per
-    site the conditional marginals and one inverse-CDF draw per walker
-    (kernel K4 after the GEMMs), the drawn state and its boundary indices
-    written into the walker, and the left-environment update. Walkers
-    never reorder, so the row-start right environments apply directly.
+    site the two GEMMs of the conditional marginals, then kernel K4
+    (``kernels.sample.sample_site``), which draws one state per walker,
+    writes it and its boundary indices into the walker, updates the left
+    environments and folds the row's minimum of mPn; nothing else runs per
+    site. Walkers never reorder, so the row-start right environments apply
+    directly.
 
     beam: dict of RL (B, M, D), vind (B, M, Nx+1) int32, states (B, M, L)
       int32.
-    row: dict of per-site stacks lB (B, Nx, Np, lh, lv), drindex
-      (B, Nx, Np), AT (B, Nx, D, lv, D), RRs (B, Nx, M, D, lh), dmap/rmap
-      (B, Nx, Np), nvalid (B, Nx) on the device, and the host list cols
+    row: dict of per-site stacks lBT (B, Nx, lh, lv, Np) (the
+      log-Boltzmann tables with the states last,
+      ``kernels.marginal.boltzmann_columns``), drindex (B, Nx, Np) int64,
+      AT (B, Nx, D, lv, D), RRs (B, Nx, M, D, lh), dmap/rmap (B, Nx, Np)
+      int32, nvalid (B, Nx) int64 on the device, and the host list cols
       (Nx,).
     u_row: (B, Nx, M) uniforms in [0, 1) in the compute dtype.
 
     Returns (beam', mq (B,)): mq is each instance's least mPn over the
-    row's sites and walkers. Nothing is read back to the host.
+    row's sites and walkers. Nothing is read back to the host, and the
+    input beam is left as it was.
     """
     RL = beam["RL"]
     vind, states = beam["vind"].clone(), beam["states"].clone()
-    mqs = []
+    mq = torch.full((RL.shape[0],), float("inf"), dtype=RL.dtype,
+                    device=RL.device)
     for nx in range(Nx):
         AT = row["AT"][:, nx]
-        indc, mPn = engine.marginal_draw(
-            row["lB"][:, nx], row["drindex"][:, nx], AT, RL,
-            row["RRs"][:, nx], vind[:, :, nx], vind[:, :, nx + 1],
-            row["nvalid"][:, nx], u_row[:, nx])
-        ind = indc.long()
-        states[:, :, row["cols"][nx]] = indc.to(states.dtype)
-        vind[:, :, nx] = row["dmap"][:, nx].gather(1, ind).to(vind.dtype)
-        vind[:, :, nx + 1] = row["rmap"][:, nx].gather(1, ind).to(vind.dtype)
-        RL = engine.rl_update(RL, AT, vind[:, :, nx])
-        mqs.append(mPn.amin(dim=1))
+        T2 = engine._marginal_T2(AT, RL, row["RRs"][:, nx])
+        RL, _ = sample_site(
+            T2, row["lBT"][:, nx], row["drindex"][:, nx], row["dmap"][:, nx],
+            row["rmap"][:, nx], row["nvalid"][:, nx], u_row[:, nx], AT, RL,
+            vind, states, nx, row["cols"][nx], mq)
     vind = torch.cat([torch.zeros_like(vind[:, :, :1]), vind[:, :, :-1]],
                      dim=2)
-    return dict(RL=RL, vind=vind, states=states), \
-        torch.stack(mqs, 1).amin(1)
+    return dict(RL=RL, vind=vind, states=states), mq
 
 
 def full_sample_scan(beam0, grid_in, rhoT, Wt, u, *, M, Nx):
@@ -583,10 +584,10 @@ def full_sample_scan(beam0, grid_in, rhoT, Wt, u, *, M, Nx):
     parallel.py:1352-1371): per lattice row, unit left environments, the
     right environments of every walker, then :func:`sample_rows`.
 
-    grid_in: dict of (B, Ny, ...) stacks lB, drindex, dmap, rmap, nvalid
-    (B, Ny, Nx) on the device, and the host list cols (Ny, Nx). rhoT
-    (B, Ny+1, Nx, D, lv, D), Wt (B, Ny, Nx, lh, lv, lh, lv), u
-    (B, Ny, Nx, M). Returns (beam, mq (B,)).
+    grid_in: dict of (B, Ny, ...) stacks lBT, drindex, dmap, rmap, nvalid
+    (B, Ny, Nx) on the device (as :func:`sample_rows` takes them), and the
+    host list cols (Ny, Nx). rhoT (B, Ny+1, Nx, D, lv, D), Wt
+    (B, Ny, Nx, lh, lv, lh, lv), u (B, Ny, Nx, M). Returns (beam, mq (B,)).
     """
     B, D = rhoT.shape[0], rhoT.shape[3]
     Ny = Wt.shape[1]
@@ -617,8 +618,11 @@ def _flagship_sample_body(f, u, *, M, Dmax, tolS, tolV, max_sweeps,
         f, clock, Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
         pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps, rsvd=rsvd, omega=omega)
     B, Ny, Nx = f["B"], f["Ny"], f["Nx"]
-    grid_in = dict(lB=lB, drindex=drindex, dmap=f["dmap"], rmap=f["rmap"],
-                   nvalid=f["nvalid"], cols=f["cols"])
+    # the Boltzmann tables with the states last, made once per pass, as
+    # for the search: a walker's column is one contiguous run for K4
+    grid_in = dict(lBT=boltzmann_columns(lB), drindex=drindex,
+                   dmap=f["dmap"], rmap=f["rmap"], nvalid=f["nvalid"],
+                   cols=f["cols"])
     dev = f["device"]
     beam0 = dict(RL=_unit_rows(B, M, Dmax, rhoT),
                  vind=torch.zeros((B, M, Nx + 1), dtype=torch.int32,
