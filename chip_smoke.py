@@ -55,7 +55,25 @@ Run from the root of a checkout on a machine with one CUDA card. It
      launches are the site loop's); the float32 fleet is printed beside
      single runs on the same uniforms, and the examined passes print their
      draws from the uniform row (saturated or vanishing marginals) by
-     cause: the float64 pass must have none.
+     cause: the float64 pass must have none;
+  6. drives the low-energy spectrum through the Solver's entry points
+     (add_noise -> precondition -> search_low_energy_spectrum with
+     auto_grow -> decode_low_energy_states; multi_search_spectrum for the
+     fleet): chimera-128 in float64 with the exact-SVD zip-up, ee=1 and
+     ee=2 after noise, gated on the committed tnax oracle (same number of
+     states, same sorted energies within 1e-9; whether the sets of states
+     are equal is printed), and a float32 ee=1 gated on its lowest energy;
+     chimera-2048 at bench.py's spectrum point (noise, the two-rung ladder,
+     ee=2, M=1024, D=32, cand_factor=64) in float32 cold and two warm and
+     in float64, gated on no merge overflow and a lowest energy within the
+     noise bound of the GS oracle, float64 also on two states within
+     twice the bound; the 8 chimera-512 instances through
+     multi_search_spectrum (float32, ee=1, cand_factor=8) cold and warm,
+     each instance's lowest energy gated on its GS oracle. Every decoded
+     energy is checked against ``energy_Jij`` of its state (1e-9), K2 and
+     K3 against one launch per site and pass; stage times (ladder,
+     boundary, records on the device, replay and decode on the host) and
+     the final cap are printed.
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before that line is printed. Without a CUDA card it fails.
@@ -77,6 +95,8 @@ ORACLE = os.path.join(DATA, "chimera2048_synth_s0_oracle.json")
 FULL_ORACLE = os.path.join(DATA, "chimera2048_synth_s0_full_oracle.json")
 FLEET = [os.path.join(DATA, f"chimera512_synth_s{s}") for s in range(1, 9)]
 SAMPLE_ORACLE = os.path.join(DATA, "chimera512_synth_s1_sample_oracle.json")
+SPECTRUM_ORACLE = os.path.join(DATA,
+                               "chimera128_synth_s0_spectrum_oracle.json")
 # the sampling points: beta=3, D=48, a two-rung ladder; the e02 point
 # draws 128 walkers per instance, chimera-2048 1024
 SAMPLE_KW = dict(Dmax=48, pre_steps=2)
@@ -882,6 +902,198 @@ def examine_draws(tt, torch, Nx, label):
     return undo
 
 
+def noisy_couplings(ins):
+    """The couplings the Solver holds (after add_noise) as [i, j, Jij]
+    triples, for ``energy_Jij``."""
+    import scipy.sparse
+    return [[int(i), int(j), float(v)]
+            for i, j, v in zip(*scipy.sparse.find(ins.problem.J))]
+
+
+def spectrum_run(tt, torch, J, n, dtype, label, *, ee, M, Dmax,
+                 cand_factor, noise=False, precondition=False,
+                 zipup_rsvd=None):
+    """One low-energy spectrum through the Solver's entry points
+    (add_noise, precondition, search_low_energy_spectrum with auto_grow,
+    decode_low_energy_states) on a chimera instance of n x n cells at
+    beta=3, cutoff 1e-8, max_dEng=1.0. Gates every decoded energy on
+    ``energy_Jij`` of its state under the Solver's couplings (1e-9), the
+    decoded states on being distinct and sorted by energy, and K2 and K3
+    on one launch per site and pass. Returns (seconds, stage times,
+    Solver, launch counts of this run, noise bound)."""
+    import numpy as np
+    from tnax_torch import kernels
+    ins = tt.Solver(mode="Ising", Nx=n, Ny=n, Nc=8, J=J, beta=3,
+                    device="cuda", dtype=dtype)
+    bound = 0.0
+    if noise:
+        np.random.seed(7)
+        ins.add_noise(1e-7)
+        # each perturbed coupling moves an energy by at most 1e-7
+        bound = 1e-7 * ins.problem.J.count_nonzero()
+    stages = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    if precondition:
+        ins.precondition(stage_times=stages)
+    ins.search_low_energy_spectrum(
+        excitations_encoding=ee, M=M, relative_P_cutoff=1e-8, Dmax=Dmax,
+        max_dEng=1.0, cand_factor=cand_factor, zipup_rsvd=zipup_rsvd,
+        stage_times=stages)
+    t1 = time.perf_counter()
+    ins.decode_low_energy_states(max_dEng=1.0)
+    seconds = time.perf_counter() - t0
+    stages["decode"] = time.perf_counter() - t1
+    counts = kernels.launch_counts()
+    E = tt.energy_Jij(noisy_couplings(ins), ins.binary_states())
+    err = float(abs(E - ins.energy).max())
+    print(f"spectrum {label}: {seconds:.3f} s  stages "
+          + " ".join(f"{k}={v:.3f}" for k, v in stages.items())
+          + f"  passes (cand_factor, merge_overflow, count_max) "
+          f"{ins.spectrum_passes}  final cap {ins.cand_factor} x M  "
+          f"{len(ins.energy)} states, lowest {ins.energy[0]:.9f}, "
+          f"degeneracy {ins.degeneracy}, recheck error {err:.3g}  "
+          f"negative_probability {ins.negative_probability:.3g}  launches "
+          f"{counts}", flush=True)
+    check(err <= 1e-9, f"spectrum {label}: decoded energies differ from "
+          f"energy_Jij of their states by {err}")
+    check(len({s.tobytes() for s in ins.states}) == len(ins.states)
+          and bool((np.diff(ins.energy) >= 0).all()),
+          f"spectrum {label}: decoded states not distinct and sorted")
+    sites = n * n * len(ins.spectrum_passes)
+    for k in ("merge", "marginal_epilogue"):
+        check(counts[k] == sites, f"spectrum {label}: kernel {k} launched "
+              f"{counts[k]} times, want one per site and pass ({sites})")
+    check(counts["sample_site"] == 0, f"spectrum {label}: the search drew")
+    check((counts["gebal"] > 0) == precondition,
+          f"spectrum {label}: K1 launched {counts['gebal']} times")
+    return seconds, stages, ins, counts, bound
+
+
+def spectrum_phase(tt, torch):
+    """Phase 6: the low-energy spectrum through the Solver's entry points.
+    (a) chimera-128 in float64, exact-SVD zip-up, held to the committed
+    tnax oracle (ee=1, and ee=2 after noise), then a float32 ee=1; (b)
+    chimera-2048 at bench.py's spectrum point (noise, precondition, ee=2,
+    M=1024, D=32, cand_factor=64 with auto_grow), float32 cold and two
+    warm, then float64; (c) the fleet of 8 chimera-512 through
+    multi_search_spectrum, float32, ee=1, cold and warm. Returns the
+    launch counts of the last float32 chimera-2048 run."""
+    import numpy as np
+    with open(SPECTRUM_ORACLE) as f:
+        orc = json.load(f)
+    J128 = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(os.path.join(
+        DATA, orc["instance"]))), 1 / 75)
+
+    def sorted_pairs(E, S):
+        order = np.lexsort(tuple(np.asarray(S).T[::-1])
+                           + (np.round(E, 9),))
+        return np.asarray(E)[order], np.asarray(S)[order]
+
+    # (a) parity with tnax's oracle on the card
+    for run in orc["runs"]:
+        ee = run["excitations_encoding"]
+        _, _, ins, _, _ = spectrum_run(
+            tt, torch, J128, 4, torch.float64, f"chimera-128 f64 ee={ee}",
+            ee=ee, M=orc["M"], Dmax=orc["Dmax"],
+            cand_factor=orc["initial_cand_factor"], noise=ee > 1,
+            zipup_rsvd=orc["zipup_rsvd"])
+        E_o = np.asarray(run["energies"])
+        ok = len(ins.energy) == len(E_o) and bool(
+            np.abs(np.sort(ins.energy) - np.sort(E_o)).max() <= 1e-9)
+        same = ok and all(np.array_equal(a, b) for a, b in zip(
+            sorted_pairs(ins.energy, ins.states),
+            sorted_pairs(E_o, run["states"])))
+        print(f"  chimera-128 f64 ee={ee}: {len(ins.energy)} states "
+              f"(oracle {len(E_o)}), degeneracy {ins.degeneracy} (oracle "
+              f"{run['degeneracy']}), passes {ins.spectrum_passes} (oracle "
+              f"{run['passes']}); the same set of states as the oracle: "
+              f"{same}", flush=True)
+        check(ok, f"chimera-128 f64 ee={ee}: decoded energies differ from "
+              f"the tnax oracle's")
+    run = orc["runs"][0]
+    _, _, ins, _, _ = spectrum_run(
+        tt, torch, J128, 4, torch.float32, "chimera-128 f32 ee=1", ee=1,
+        M=orc["M"], Dmax=orc["Dmax"], cand_factor=orc["initial_cand_factor"],
+        zipup_rsvd=orc["zipup_rsvd"])
+    common = len({s.tobytes() for s in ins.states.astype(np.int32)}
+                 & {s.tobytes() for s in np.asarray(run["states"],
+                                                    np.int32)})
+    print(f"  chimera-128 f32 ee=1: {common} of {len(run['states'])} oracle "
+          f"states decoded ({len(ins.energy)} states)", flush=True)
+    check(ins.energy[0] <= run["energies"][0] + 1e-9,
+          f"chimera-128 f32 ee=1: lowest {ins.energy[0]} above the oracle's "
+          f"{run['energies'][0]}")
+
+    # (b) chimera-2048 at bench.py's spectrum point
+    J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(INSTANCE)), 1 / 75)
+    with open(ORACLE) as f:
+        E_gs = json.load(f)["energy"]
+    runs = {}
+    for dtype, label in ((torch.float32, "f32 cold"),
+                         (torch.float32, "f32 warm 1"),
+                         (torch.float32, "f32 warm 2"),
+                         (torch.float64, "f64")):
+        runs[label] = spectrum_run(
+            tt, torch, J, 16, dtype, f"chimera-2048 {label}", ee=2, M=1024,
+            Dmax=32, cand_factor=64, noise=True, precondition=True)
+        _, _, ins, _, bound = runs[label]
+        near = int((ins.energy <= ins.energy[0] + 2 * bound).sum())
+        print(f"  chimera-2048 {label}: lowest {ins.energy[0]:.9f} (GS "
+              f"oracle {E_gs}, noise bound {bound:.3g}); {near} states "
+              f"within twice the bound of the lowest", flush=True)
+        check(ins.merge_overflow == 0, f"chimera-2048 {label}: "
+              f"merge_overflow {ins.merge_overflow}")
+        check(abs(ins.energy[0] - E_gs) <= bound,
+              f"chimera-2048 {label}: lowest {ins.energy[0]} not within "
+              f"{bound} of the oracle {E_gs}")
+        if dtype == torch.float64:
+            check(near >= 2, f"chimera-2048 {label}: {near} states within "
+                  f"{2 * bound} of the lowest, the oracle's degeneracy is 2")
+    warm = [runs[f"f32 warm {i}"][0] for i in (1, 2)]
+    print(f"spectrum chimera-2048 f32 warm {warm[0]:.3f} / {warm[1]:.3f} s",
+          flush=True)
+
+    # (c) the fleet of 8 chimera-512 through multi_search_spectrum
+    Js, E_os = [], []
+    for base in FLEET:
+        Js.append(tt.round_Jij(tt.Jij_f2p(tt.load_Jij(base + ".txt")),
+                               1 / 75))
+        with open(base + "_oracle.json") as f:
+            E_os.append(json.load(f)["energy"])
+    for label in ("cold", "warm"):
+        solvers = [tt.Solver(mode="Ising", Nx=8, Ny=8, Nc=8, J=Jb, beta=3,
+                             device="cuda", dtype=torch.float32)
+                   for Jb in Js]
+        stages = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs = tt.multi_search_spectrum(
+            solvers, [s._context() for s in solvers], 1, M=1024,
+            relative_P_cutoff=1e-8, Dmax=32, max_dEng=1.0, cand_factor=8,
+            stage_times=stages)
+        for s, r in zip(solvers, rs):
+            s.set_result(r)
+            s.decode_low_energy_states(max_dEng=1.0)
+        seconds = time.perf_counter() - t0
+        print(f"spectrum fleet f32 {label}: {seconds:.3f} s for 8 "
+              f"chimera-512 ({60 * 8 / seconds:.2f} instances/min)  stages "
+              + " ".join(f"{k}={v:.3f}" for k, v in stages.items()),
+              flush=True)
+        for b, (s, Jb, E_o) in enumerate(zip(solvers, Js, E_os)):
+            err = float(abs(tt.energy_Jij(Jb, s.binary_states())
+                            - s.energy).max())
+            print(f"  s{b + 1}: {len(s.energy)} states, lowest "
+                  f"{s.energy[0]:.6f} (GS oracle {E_o:.6f}), merge_overflow "
+                  f"{s.merge_overflow}, recheck error {err:.3g}", flush=True)
+            check(err <= 1e-9, f"spectrum fleet s{b + 1}: decoded energies "
+                  f"differ from energy_Jij by {err}")
+            check(s.energy[0] <= E_o + 1e-6, f"spectrum fleet s{b + 1}: "
+                  f"lowest {s.energy[0]} above the GS oracle {E_o}")
+    return runs["f32 warm 2"][3]
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "tnax_torch")):
         fail("no tnax_torch package beside chip_smoke.py")
@@ -948,6 +1160,9 @@ def main():
     # phase 5: Gibbs sampling through its entry points
     sample = sample_phase(tt, torch)
 
+    # phase 6: the low-energy spectrum through its entry points
+    spectrum = spectrum_phase(tt, torch)
+
     # summary: kernel numbers in float32 at the fleet's shapes; launches
     # of the last f32 fleet batch of the path that runs the kernel (the
     # search for K1-K3, the sampler for K4), and of the last f32 single
@@ -974,7 +1189,8 @@ def main():
                             **({"sort_ms": r["sort_ms"]} if "sort_ms" in r
                                else {}),
                             launches_single=single[name],
-                            launches_sample_fleet=sample[name]))
+                            launches_sample_fleet=sample[name],
+                            launches_spectrum=spectrum[name]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"imports", flush=True)
     print(smi, flush=True)

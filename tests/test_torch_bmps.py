@@ -31,6 +31,17 @@ def dense(A, lognorm):
     return v[:, 0] * 2.0 ** float(np.asarray(lognorm))
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Torch on one CPU thread for a module's tests: their operations are
+    small, so more threads only spin against the test workers beside
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tnax_omega(L, n, k):
     """The sketch matrices tnax's zip-up draws (bmps.py:600, :649)."""
     keys = jax.random.split(jax.random.PRNGKey(0), L)

@@ -417,7 +417,7 @@ def test_search_loop_never_syncs(cuda):
     full_search_scan raises."""
     import os
     import tnax_torch as tt
-    from tnax_torch import parallel
+    from tnax_torch import parallel, search
     path = os.path.join(os.path.dirname(__file__), "data",
                         "chimera128_synth_s0.txt")
     J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(path)), 1 / 75)
@@ -440,7 +440,7 @@ def test_search_loop_never_syncs(cuda):
     rhoT = engine.build_rhoT(Wt, Dmax=D, tolS=1e-16, tolV=1e-10,
                              max_sweeps=2)[0]
     raw = [fleet(a, torch.float64)
-           for a in parallel._padded_energy_rows_problem(ins.problem)]
+           for a in search.padded_energy_rows(ins.problem)]
     cols = (np.arange(4)[:, None] * 4 + np.arange(4)[None, :]).tolist()
     grid_in = dict(lBT=kernels.marginal.boltzmann_columns(lB),
                    drindex=dmap.long() * g.lh + rmap.long(),
@@ -457,3 +457,37 @@ def test_search_loop_never_syncs(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(beam["valid"].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cand_factor", [8, 64, None],
+                         ids=["topk", "compact", "full"])
+def test_records_dispatch_never_syncs(cuda, cand_factor):
+    """The spectrum's records of every row are launched, and their copies
+    to pinned host memory started, without one synchronizing call; the
+    rows then arrive, each marked by its event."""
+    import os
+    import tnax_torch as tt
+    from tnax_torch import spectrum
+    path = os.path.join(os.path.dirname(__file__), "data",
+                        "chimera128_synth_s0.txt")
+    J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(path)), 1 / 75)
+    M = 256
+    ins = tt.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J, beta=3,
+                    device="cuda", dtype=torch.float64)
+    ctx = ins._context()
+    ctx.build_boundary(8, 1e-16, 1e-10, 2, rsvd=False)
+    C, P = spectrum.caps(M, ctx.Np, cand_factor)
+    kw = dict(M=M, C=C, P=P, relative_P_cutoff=1e-8, min_dEng=1e-12)
+    spectrum.dispatch_records(ctx, **kw)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        layout, rows = spectrum.dispatch_records(ctx, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(isinstance(e, torch.cuda.Event) and h.is_pinned()
+               for h, e in rows)
+    R = spectrum._row_records(rows[-1], layout, 0)
+    assert int(R["out_valid"][-1].sum()) > 0
+    assert bool((R["count"] > 0).all())

@@ -1,6 +1,7 @@
 """Packaging rules of the port: it and its chip scripts never import jax
-or tnax, its kernel wrappers dispatch by device, and chip_smoke.py
-refuses to run without a CUDA card or without the package beside it."""
+or tnax, its kernel wrappers dispatch by device, its droplet C code builds
+into build/tnax_torch/ or raises, and chip_smoke.py refuses to run
+without a CUDA card or without the package beside it."""
 
 import os
 import re
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 import tnax_torch
-from tnax_torch import kernels
+from tnax_torch import kernels, native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMPORT = re.compile(r"^\s*(import|from)\s+(jax|tnax)\b")
@@ -36,6 +37,31 @@ def test_no_jax_or_tnax_import(path):
     with open(path) as f:
         bad = [line for line in f if IMPORT.match(line)]
     assert not bad, bad
+
+
+def test_scan_covers_the_spectrum_modules():
+    names = {os.path.relpath(p, ROOT) for p in _sources()}
+    for m in ("search.py", "spectrum.py", "native/__init__.py"):
+        assert os.path.join("tnax_torch", m) in names, m
+
+
+def test_native_builds_into_build_dir_and_raises_on_failure(tmp_path,
+                                                          monkeypatch):
+    lib = native.lib()
+    assert lib.tnax_hd_pair_ising is not None
+    built = list((native.BUILD_DIR).glob("libdroplets_*.so"))
+    assert built and native.BUILD_DIR.parts[-2:] == ("build", "tnax_torch")
+    native.lib.cache_clear()
+    try:
+        monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+        monkeypatch.setenv("CC", "false")
+        with pytest.raises(RuntimeError, match="droplets.c"):
+            native.lib()
+    finally:
+        native.lib.cache_clear()
+    with pytest.raises(MemoryError):
+        native.check(-1, "tnax_unpack_v2")
+    assert native.check(3, "tnax_unpack_v2") == 3
 
 
 def test_wrappers_count_no_launch_on_cpu():

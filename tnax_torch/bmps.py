@@ -193,6 +193,19 @@ def _rsvd(Gm: torch.Tensor, Om: torch.Tensor, iters: int = 2):
     return Q @ Ub, S, Vh
 
 
+def check_rsvd(rsvd):
+    """The zip-up's truncation choice as a bool: None (tnax's ambient
+    default) and True are the randomized sketch, False the exact SVD.
+    tnax's other sketches ("bf16", "wide") are not ported: ValueError for
+    them and for any other value."""
+    if rsvd is None:
+        return True
+    if isinstance(rsvd, bool):
+        return rsvd
+    raise ValueError(f"zipup_rsvd must be True, False or None, got {rsvd!r} "
+                     f"(the 'bf16' and 'wide' sketches are not ported)")
+
+
 def zipup_apply(mps: MPS, W: torch.Tensor, Dmax: int, *, conj: bool,
                 tol: float, rsvd: bool = True, omega=None):
     """Left-to-right zip-up of W (B, L, l, d, r, u) onto mps, truncated to
@@ -213,7 +226,7 @@ def zipup_apply(mps: MPS, W: torch.Tensor, Dmax: int, *, conj: bool,
     tol = max(torch.finfo(dtype).eps, tol)
     rows, cols = Dmax * du, D * lh
     k_sketch = min(min(rows, cols), Dmax + 32)
-    use_rsvd = bool(rsvd) and min(rows, cols) >= 2 * k_sketch
+    use_rsvd = check_rsvd(rsvd) and min(rows, cols) >= 2 * k_sketch
     if use_rsvd:
         if omega is None:
             omega = sketch_omega(L, cols, k_sketch, dtype, device)

@@ -3,13 +3,16 @@ tensors out. Used to start both packages from the same state.
 
 The port's tensors carry a leading instance axis. Each function takes
 the arrays of one tnax instance, which become a batch of one, or tnax's
-stacked fleet arrays (its vmapped outputs), which keep their axis."""
+stacked fleet arrays (its vmapped outputs), which keep their axis. A
+Solver's droplet store is host data in both packages and comes across as
+it is (:func:`droplet_store`)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import spectrum
 from .bmps import MPS
 
 DEG_BITS = 12  # tnax's degeneracy limbs are base 2^12 int32
@@ -67,3 +70,23 @@ def beam(b, device, dtype):
         valid=bt(b["valid"], torch.bool, 1),
         aidx=bt(b["aidx"], torch.int64, 1),
     )
+
+
+def droplet_store(ins, store):
+    """Put a tnax Solver's droplet store into the port Solver ``ins``:
+    ``store`` maps d, invd, el, free_d and excitations_encoding, and for
+    encodings 2 and 3 adj (dense) and xor2ind, as tnax holds them (NumPy
+    arrays and tuples); energy and states, if present, come along. The
+    adjacency's bitset tables are rebuilt, so the port's decoder can
+    expand a store that tnax built."""
+    for k in ("d", "invd", "el", "free_d", "excitations_encoding",
+              "energy", "states"):
+        if k in store:
+            setattr(ins, k, store[k])
+    ins._keyl = {(p.tobytes(), s.tobytes()): k
+                 for k, (p, s) in ins.d.items()}
+    ins._shape_masks = {}
+    if ins.excitations_encoding > 1:
+        ins.adj = np.asarray(store["adj"], dtype=bool)
+        ins.xor2ind = [list(tab) for tab in store["xor2ind"]]
+        spectrum.adjacency_tables(ins)

@@ -13,11 +13,15 @@ them), the top-M groups with exact int64 degeneracy sums, and the
 left-environment update. ``lax.scan`` over sites and rows becomes Python
 loops; nothing in the per-site loop reads a device value on the host.
 
+The low-energy spectrum's decision records (:func:`row_records_prog`)
+run the same site body (:func:`site_step`) and record what each site
+decided, for the host replay of ``spectrum``.
+
 Sampling (:func:`flagship_sample`, :func:`multi_flagship_sample`) shares
 the pipeline's first three stages with the search and then draws M
-walkers per instance site by site (kernel K4 for the draw). tnax draws
-with ``jax.random`` inside its scan; here each instance's uniforms of the
-pass are drawn up front, or injected by the caller.
+walkers per instance site by site (kernel K4 for the site step). tnax
+draws with ``jax.random`` inside its scan; here each instance's uniforms
+of the pass are drawn up front, or injected by the caller.
 
 Energies: tnax accumulates the beam energies in the compute dtype (f32 on
 the TPU, which lacks f64). Here the raw energy tables and the beam
@@ -39,7 +43,9 @@ import torch
 
 from . import engine
 from . import precondition as pre
+from .bmps import check_rsvd
 from .kernels.marginal import boltzmann_columns
+from .search import ContractionContext, fleet_tables
 from .kernels.merge import merge_segments, segment_stats_plain
 from .kernels.sample import sample_site
 
@@ -145,12 +151,190 @@ def select_groups(perm, seg, Emin, first_min, gprob, deg_seg, valid, M):
 
 
 # ---------------------------------------------------------------------------
-# beam step over one lattice row
+# one beam site: the body of the search and of the decision records
 # ---------------------------------------------------------------------------
+
+def _compact_candidates(probf, pmax, log2_cutoff, C):
+    """tnax's ``compact`` candidate order (parallel.py:621-646), which its
+    decision records take at C >= 16*M: every flagged candidate (above
+    the cutoff or at pmax, and live), branch by branch, each branch's in
+    its own descending order with the lower state first among ties, cut
+    at C. When more than C are flagged this is not the global top C.
+
+    probf (B, M, Np), pmax (B,). Returns (vals (B, C) NEG beyond the
+    flagged, flat indices (B, C) 0 beyond them, count (B,) of flagged,
+    disc (B,) the largest value dropped by the cutoff or the cap).
+    """
+    B, M, Np = probf.shape
+    dev = probf.device
+    svals, sidx = torch.sort(probf, dim=2, descending=True, stable=True)
+    live = svals > NEG / 2
+    flag = ((svals > (pmax + log2_cutoff)[:, None, None])
+            | (svals == pmax[:, None, None])) & live
+    count = flag.sum(dim=(1, 2))
+    # the flagged entries form a prefix of each branch's sorted row; a
+    # stable partition puts them first, branch-major
+    flat, svals = flag.reshape(B, M * Np), svals.reshape(B, M * Np)
+    pos = torch.cumsum(flat, dim=1) - 1
+    at = torch.where(flat & (pos < C), pos, C)
+    fidx = (torch.arange(M, device=dev)[:, None] * Np + sidx).reshape(B, -1)
+    vals = torch.full((B, C + 1), NEG, dtype=probf.dtype, device=dev)
+    vals = vals.scatter_(1, at, svals)[:, :C]
+    idx = torch.zeros((B, C + 1), dtype=torch.int64, device=dev)
+    idx = idx.scatter_(1, at, fidx)[:, :C]
+    dropped = (flat & (pos >= C)) | (live.reshape(B, -1) & ~flat)
+    disc = torch.where(dropped, svals, NEG).amax(dim=1)
+    return vals, idx, count, disc
+
+
+def site_step(beam, site, *, M, nx, bits, min_dEng, log2_cutoff, C,
+              col=None, records=False, compact=False):
+    """One lattice site of the beam search of B instances, the body that
+    :func:`row_step` and :func:`row_records_prog` share: the marginals
+    (kernel K3 in the epilogue), each instance's relative cutoff, the
+    candidates, the merge of those that share a boundary-index vector
+    (kernel K2 groups them), the top-M groups with exact int64
+    degeneracy sums, the parents' gathers and the left-environment
+    update. Nothing is read on the host.
+
+    beam: RL (B, M, D), vind (B, M, Nx+1) int32, Eng (B, M) float64, prob
+      (B, M), valid (B, M) bool, aidx (B, M); deg (B, M) int64 and states
+      (B, M, L) int32 where the caller keeps them (``col`` is then the
+      site's state column).
+    site: lBT (B, lh, lv, Np), drindex (B, Np) int64, AT (B, D, lv, D),
+      RRs (B, M, D, lh) (the row-start right environments of the site), Es
+      (B, Np), Esl (B, Np, lh), Esu (B, Np, lv) raw float64, dmap/rmap (B,
+      Np), nvalid (B,) int64.
+
+    Candidates: the prob-ordered top C of the M*Np expansion (lax.top_k's
+    order), or with ``compact`` tnax's branch-major order
+    (:func:`_compact_candidates`). ``records`` takes the diagnostics of
+    tnax's decision records instead of its search's: count = the
+    candidates above the cutoff without the live mask (topk) or the
+    flagged ones (compact), and disc = the first value dropped by the
+    cutoff or the cap.
+
+    Returns (beam', dec): dec holds (B, ...) tensors of the decisions, src
+    and indc (B, C) each candidate's parent slot and state, vals (B, C)
+    its log2-probability, slot (B, C) the output slot it merged into (-1:
+    none), rep (B, M) each slot's representative candidate, count, disc,
+    disc_m (the largest group the top-M cut dropped), mq and mqc (B,).
+    """
+    B, Np = site["lBT"].shape[0], site["lBT"].shape[-1]
+    N = M * Np
+    kb = (M - 1).bit_length() + 2 * bits + 1
+    RL, vind, Eng, prob, valid, aidx = (
+        beam[k] for k in ("RL", "vind", "Eng", "prob", "valid", "aidx"))
+    dev = RL.device
+    take = engine._take
+    AT = site["AT"]
+    dmap, rmap = site["dmap"].long(), site["rmap"].long()
+    RRsel = take(site["RRs"], aidx)
+    lidx = vind[:, :, nx].long()
+    uidx = vind[:, :, nx + 1].long()
+    # Einc[b, m, p] = Eng[m] + Es[p] + Esl[p, lidx_m] + Esu[p, uidx_m];
+    # the picks are exact gathers, in tnax's addition order
+    Einc = ((Eng[:, :, None] + site["Es"][:, None, :])
+            + take(site["Esl"].transpose(1, 2), lidx)) \
+        + take(site["Esu"].transpose(1, 2), uidx)
+    # the epilogue (K3) also takes the site's reductions: pmax, and the
+    # negativeness of live (mq) and of core branches (mqc)
+    probf, _, pmax, mq, mqc = engine.marginal_probf(
+        site["lBT"], site["drindex"], AT, RL, RRsel, lidx, uidx,
+        site["nvalid"], prob, valid, log2_cutoff)
+    neg = torch.full((B,), NEG, dtype=probf.dtype, device=dev)
+    if compact:
+        vals_c, idx_c, count, disc = _compact_candidates(probf, pmax,
+                                                         log2_cutoff, C)
+        cvalid = torch.arange(C, device=dev) < torch.clamp(count,
+                                                           max=C)[:, None]
+    else:
+        probf = probf.reshape(B, N)
+        cutoff = pmax[:, None] + log2_cutoff
+        # prob-ordered top-C candidates (+1 to see the cap's first casualty)
+        k = min(C + 1, N)
+        vals, idx = _top_k(probf, k)
+        if records:
+            count = (probf > cutoff).sum(dim=1)
+            kk = torch.clamp(count, max=C)
+            at = torch.clamp(kk, 0, k - 1)[:, None]
+            disc = torch.where(kk < N, vals.gather(1, at)[:, 0], neg)
+        else:
+            count = ((probf > cutoff) & (probf > NEG / 2)).sum(dim=1)
+            disc = neg
+            if C < N:
+                disc = torch.where(count > C, vals[:, min(C, k - 1)], neg)
+            at = torch.clamp(count, 0, k - 1)[:, None]
+            disc = torch.maximum(disc, torch.where(
+                count < N, vals.gather(1, at)[:, 0], neg))
+        vals_c, idx_c = vals[:, :C], idx[:, :C]
+        live = vals_c > NEG / 2
+        # the best branch always survives, even below the cutoff
+        cvalid = (valid.gather(1, idx_c // Np) & (vals_c > cutoff) & live) \
+            | ((vals_c == pmax[:, None]) & live)
+    src = idx_c // Np
+    indc = idx_c % Np
+
+    E_cand = Einc.reshape(B, N).gather(1, idx_c)
+    d_c, r_c = dmap.gather(1, indc), rmap.gather(1, indc)
+    vind_c = take(vind, src)
+    vind_c[:, :, nx] = d_c.to(vind.dtype)
+    vind_c[:, :, nx + 1] = r_c.to(vind.dtype)
+
+    key1 = None
+    if kb <= 31:
+        # candidates share a vind row iff their parents' groups over the
+        # other columns and their (dmap, rmap) coincide; parents are
+        # vind-unique, so one lexsort of M rows gives the groups
+        vind_p = vind.clone()
+        vind_p[:, :, nx] = 0
+        vind_p[:, :, nx + 1] = 0
+        perm_p = _lexsort(pack_keys(vind_p, bits))
+        vp = take(vind_p, perm_p)
+        seg_p = torch.cat([
+            torch.zeros((B, 1), dtype=torch.int64, device=dev),
+            torch.cumsum((vp[:, 1:] != vp[:, :-1]).any(dim=2), 1)], dim=1)
+        gid = torch.empty_like(seg_p).scatter(1, perm_p, seg_p)
+        key1 = ((gid.gather(1, src) << (2 * bits + 1))
+                | (d_c << (bits + 1)) | (r_c << 1)
+                | (1 - cvalid.long())).to(torch.int32)
+    deg = beam.get("deg")
+    deg_c = torch.ones_like(src) if deg is None else deg.gather(1, src)
+    slot, rep, prob_o, Eng_o, valid_o, disc_m, deg_o = merge_candidates(
+        vind_c, E_cand, vals_c, cvalid, min_dEng, bits, M, deg_c, key1=key1,
+        key_bits=kb)
+    bsrc = src.gather(1, rep)
+    vind_o = take(vind_c, rep)
+    out = dict(RL=engine.rl_update(take(RL, bsrc), AT, vind_o[:, :, nx]),
+               vind=vind_o, Eng=Eng_o, prob=prob_o, valid=valid_o,
+               aidx=aidx.gather(1, bsrc))
+    if deg is not None:
+        out["deg"] = deg_o
+    if "states" in beam:
+        states = take(beam["states"], bsrc)
+        states[:, :, col] = indc.gather(1, rep).to(states.dtype)
+        out["states"] = states
+    dec = dict(src=src, indc=indc, vals=vals_c, slot=slot, rep=rep,
+               count=count, disc=disc, disc_m=disc_m, mq=mq, mqc=mqc)
+    return out, dec
+
+
+def _site(row, nx):
+    """Site nx of a row's per-site stacks (B, Nx, ...)."""
+    return {k: v[:, nx] for k, v in row.items() if k != "cols"}
+
+
+def _shift_vind(vind):
+    """Shift each branch's boundary indices for the next row (reference
+    tnac4o/tnac4o.py:540-542)."""
+    return torch.cat([torch.zeros_like(vind[:, :, :1]), vind[:, :, :-1]],
+                     dim=2)
+
 
 def row_step(beam, row, *, M, Nx, bits, min_dEng, log2_cutoff, cand=None):
     """Process one full lattice row of the beam search of B instances on
-    the device.
+    the device: :func:`site_step` for every site, with the search's
+    diagnostics.
 
     beam: dict of RL (B, M, D), vind (B, M, Nx+1) int32, states (B, M, L)
       int32, Eng (B, M) float64, prob (B, M), deg (B, M) int64, valid
@@ -163,113 +347,43 @@ def row_step(beam, row, *, M, Nx, bits, min_dEng, log2_cutoff, cand=None):
       (B, Nx, Np), nvalid (B, Nx) int64 on the device, and the host list
       cols (Nx,).
 
-    Per site and per instance: relative cutoff -> merge by ``vind`` over
-    the top-``cand`` candidates -> top-M groups. ``cand=None`` is the full
-    M*Np expansion. Every instance has its own cutoff, counts and
-    diagnostics. Returns (beam', aux) with aux = dict(mq, mqc, pd, ovf,
-    cmax) of (B,) device tensors (no host sync).
+    ``cand=None`` is the full M*Np expansion. Every instance has its own
+    cutoff, counts and diagnostics. Returns (beam', aux) with aux =
+    dict(mq, mqc, pd, ovf, cmax) of (B,) device tensors (no host sync).
     """
-    B, Np = row["lBT"].shape[0], row["lBT"].shape[-1]
+    Np = row["lBT"].shape[-1]
     C = min(cand if cand is not None else M * Np, M * Np)
-    kb = (M - 1).bit_length() + 2 * bits + 1
-    RL, vind, states, Eng, prob, deg, valid, aidx = (
-        beam[k] for k in ("RL", "vind", "states", "Eng", "prob", "deg",
-                          "valid", "aidx"))
-    dev = RL.device
-    take = engine._take
-    mqs, mqcs, pds, ovfs, cnts = [], [], [], [], []
+    decs = []
     for nx in range(Nx):
-        AT = row["AT"][:, nx]
-        Es_t, Esl_t, Esu_t = (row[k][:, nx] for k in ("Es", "Esl", "Esu"))
-        dmap, rmap = row["dmap"][:, nx].long(), row["rmap"][:, nx].long()
-        RRsel = take(row["RRs"][:, nx], aidx)
-        lidx = vind[:, :, nx].long()
-        uidx = vind[:, :, nx + 1].long()
-        # Einc[b, m, p] = Eng[m] + Es[p] + Esl[p, lidx_m] + Esu[p, uidx_m];
-        # the picks are exact gathers, in tnax's addition order
-        Einc = ((Eng[:, :, None] + Es_t[:, None, :])
-                + take(Esl_t.transpose(1, 2), lidx)) \
-            + take(Esu_t.transpose(1, 2), uidx)
-        # the epilogue (K3) also takes the row's reductions: pmax, and the
-        # negativeness of live (mq) and of core branches (mqc)
-        probf, _, pmax, mq, mqc = engine.marginal_probf(
-            row["lBT"][:, nx], row["drindex"][:, nx], AT, RL, RRsel, lidx,
-            uidx, row["nvalid"][:, nx], prob, valid, log2_cutoff)
-        probf = probf.reshape(B, M * Np)
-        mqs.append(mq)
-        mqcs.append(mqc)
-        pmax = pmax[:, None]
-        cutoff = pmax + log2_cutoff
-        flag = (probf > cutoff) & (probf > NEG / 2)
-        count = flag.sum(dim=1)
-        # prob-ordered top-C candidates (+1 to see the cap's first casualty)
-        k = min(C + 1, M * Np)
-        vals, idx = _top_k(probf, k)
-        neg = torch.full((B,), NEG, dtype=vals.dtype, device=dev)
-        disc_cap = neg
-        if C < M * Np:
-            disc_cap = torch.where(count > C, vals[:, min(C, k - 1)], neg)
-        at = torch.clamp(count, 0, k - 1)[:, None]
-        disc_cut = torch.where(count < M * Np, vals.gather(1, at)[:, 0], neg)
-        disc_cap = torch.maximum(disc_cap, disc_cut)
-        vals_c, idx_c = vals[:, :C], idx[:, :C]
-        src = idx_c // Np
-        indc = idx_c % Np
-        live = vals_c > NEG / 2
-        # the best branch always survives, even below the cutoff
-        cvalid = (valid.gather(1, src) & (vals_c > cutoff) & live) \
-            | ((vals_c == pmax) & live)
+        beam, dec = site_step(beam, _site(row, nx), M=M, nx=nx, bits=bits,
+                              min_dEng=min_dEng, log2_cutoff=log2_cutoff,
+                              C=C, col=row["cols"][nx])
+        decs.append(dec)
+    beam = dict(beam, vind=_shift_vind(beam["vind"]))
 
-        E_cand = Einc.reshape(B, M * Np).gather(1, idx_c)
-        d_c, r_c = dmap.gather(1, indc), rmap.gather(1, indc)
-        vind_c = take(vind, src)
-        vind_c[:, :, nx] = d_c.to(vind.dtype)
-        vind_c[:, :, nx + 1] = r_c.to(vind.dtype)
-
-        key1 = None
-        if kb <= 31:
-            # candidates share a vind row iff their parents' groups over
-            # the other columns and their (dmap, rmap) coincide; parents
-            # are vind-unique, so one lexsort of M rows gives the groups
-            vind_p = vind.clone()
-            vind_p[:, :, nx] = 0
-            vind_p[:, :, nx + 1] = 0
-            perm_p = _lexsort(pack_keys(vind_p, bits))
-            vp = take(vind_p, perm_p)
-            seg_p = torch.cat([
-                torch.zeros((B, 1), dtype=torch.int64, device=dev),
-                torch.cumsum((vp[:, 1:] != vp[:, :-1]).any(dim=2), 1)],
-                dim=1)
-            gid = torch.empty_like(seg_p).scatter(1, perm_p, seg_p)
-            key1 = ((gid.gather(1, src) << (2 * bits + 1))
-                    | (d_c << (bits + 1)) | (r_c << 1)
-                    | (1 - cvalid.long())).to(torch.int32)
-        slot, rep, prob, Eng, valid, disc_m, deg = merge_candidates(
-            vind_c, E_cand, vals_c, cvalid, min_dEng, bits, M,
-            deg.gather(1, src), key1=key1, key_bits=kb)
-        bsrc = src.gather(1, rep)
-        vind = take(vind_c, rep)
-        states = take(states, bsrc)
-        states[:, :, row["cols"][nx]] = indc.gather(1, rep).to(states.dtype)
-        aidx = aidx.gather(1, bsrc)
-        RL = engine.rl_update(take(RL, bsrc), AT, vind[:, :, nx])
-        pds.append(torch.maximum(disc_cap, disc_m))
-        ovfs.append(count > C)
-        cnts.append(count)
-    vind = torch.cat([torch.zeros_like(vind[:, :, :1]), vind[:, :, :-1]],
-                     dim=2)
-    out = dict(RL=RL, vind=vind, states=states, Eng=Eng, prob=prob, deg=deg,
-               valid=valid, aidx=aidx)
-    aux = dict(mq=torch.stack(mqs, 1).amin(1),
-               mqc=torch.stack(mqcs, 1).amin(1),
-               pd=torch.stack(pds, 1).amax(1),
-               ovf=torch.stack(ovfs, 1).sum(1),
-               cmax=torch.stack(cnts, 1).amax(1))
-    return out, aux
+    def over_sites(k):
+        return torch.stack([d[k] for d in decs], 1)
+    aux = dict(mq=over_sites("mq").amin(1), mqc=over_sites("mqc").amin(1),
+               pd=torch.maximum(over_sites("disc"),
+                                over_sites("disc_m")).amax(1),
+               ovf=(over_sites("count") > C).sum(1),
+               cmax=over_sites("count").amax(1))
+    return beam, aux
 
 
 _AUX_REDUCE = dict(mq=torch.amin, mqc=torch.amin, pd=torch.amax,
                    ovf=torch.sum, cmax=torch.amax)
+
+
+def _row_inputs(grid_in, rhoT, Wt, beam, ny):
+    """Row ny's per-site stacks from the search's (B, Ny, ...) inputs,
+    with the boundary below the row and every branch's right
+    environments."""
+    row = {k: v[ny] if k == "cols" else v[:, ny] for k, v in grid_in.items()}
+    row.update(AT=rhoT[:, ny + 1],
+               RRs=engine.row_right_envs(rhoT[:, ny + 1], Wt[:, ny],
+                                         beam["vind"][:, :, 1:]))
+    return row
 
 
 def full_search_scan(beam0, grid_in, rhoT, Wt, *, M, Nx, bits, min_dEng,
@@ -279,7 +393,8 @@ def full_search_scan(beam0, grid_in, rhoT, Wt, *, M, Nx, bits, min_dEng,
 
     grid_in: dict of (B, Ny, ...) stacks lBT, drindex, Es, Esl, Esu,
     dmap, rmap, nvalid (B, Ny, Nx) on the device (as :func:`row_step`
-    takes them), and the host list cols (Ny, Nx). rhoT (B, Ny+1, Nx, D, lv, D), Wt (B, Ny, Nx, lh, lv, lh, lv).
+    takes them), and the host list cols (Ny, Nx). rhoT (B, Ny+1, Nx, D,
+    lv, D), Wt (B, Ny, Nx, lh, lv, lh, lv).
     Returns (beam, aux) with aux reduced over rows, per instance.
     """
     B, D = rhoT.shape[0], rhoT.shape[3]
@@ -289,11 +404,7 @@ def full_search_scan(beam0, grid_in, rhoT, Wt, *, M, Nx, bits, min_dEng,
     for ny in range(Ny):
         beam["aidx"] = torch.arange(M, device=rhoT.device).expand(B, M)
         beam["RL"] = _unit_rows(B, M, D, rhoT)
-        RRs = engine.row_right_envs(rhoT[:, ny + 1], Wt[:, ny],
-                                    beam["vind"][:, :, 1:])
-        row = {k: v[ny] if k == "cols" else v[:, ny]
-               for k, v in grid_in.items()}
-        row.update(AT=rhoT[:, ny + 1], RRs=RRs)
+        row = _row_inputs(grid_in, rhoT, Wt, beam, ny)
         beam, aux = row_step(beam, row, M=M, Nx=Nx, bits=bits,
                              min_dEng=min_dEng, log2_cutoff=log2_cutoff,
                              cand=cand)
@@ -327,9 +438,144 @@ def _initial_beam(B, M, D, Nx, Ny, dtype, device):
     )
 
 
+# ---------------------------------------------------------------------------
+# per-site decision records of the spectrum search
+# ---------------------------------------------------------------------------
+
+# the fields of a site's record: name, dtype, length per site (P: the pull
+# cap, M: the beam, None: one value). The probabilities are float32 in
+# either compute dtype, as tnax's records hold them (_f32bits), and the
+# replay reads them as such.
+RECORD_FIELDS = (("src", torch.int32, "P"), ("indc", torch.int32, "P"),
+                 ("slot", torch.int32, "P"), ("rep", torch.int32, "M"),
+                 ("cprob", torch.float32, "P"),
+                 ("out_prob", torch.float32, "M"),
+                 ("out_valid", torch.bool, "M"),
+                 ("n_valid", torch.int32, None), ("count", torch.int32, None),
+                 ("disc_cut", torch.float32, None),
+                 ("disc_m", torch.float32, None),
+                 ("minP", torch.float32, None),
+                 ("minP_core", torch.float32, None))
+
+
+def _f32(x):
+    """x rounded to float32 with subnormals flushed to zero (keeping the
+    sign), as tnax's records hold their probabilities (XLA's conversion
+    flushes)."""
+    y = x.to(torch.float32)
+    return torch.where(y.abs() < torch.finfo(torch.float32).tiny, y * 0, y)
+
+
+def record_layout(B, Nx, M, P):
+    """(bytes, [(name, dtype, shape, offset)]) of one row's records of B
+    instances: every field (B, Nx, ...) in one buffer, 8-byte aligned, so
+    a row leaves the device in one copy."""
+    fields, off = [], 0
+    for name, dt, n in RECORD_FIELDS:
+        shape = (B, Nx) + ({"P": (P,), "M": (M,), None: ()}[n])
+        fields.append((name, dt, shape, off))
+        off += -(-int(np.prod(shape)) * dt.itemsize // 8) * 8
+    return off, fields
+
+
+def record_views(buf, layout):
+    """The fields of a row's record buffer ``buf`` (uint8, on any device)
+    as typed (B, Nx, ...) views."""
+    return {name: buf[off:off + int(np.prod(shape)) * dt.itemsize]
+            .view(dt).view(shape) for name, dt, shape, off in layout[1]}
+
+
+def row_records_prog(beam, row, AT_row, Wt_row, *, M, C, Nx, bits, min_dEng,
+                     log2_cutoff, P=None, select="topk", rec=None):
+    """One lattice row of the search of B instances, emitting per-site
+    decision records (tnax's ``row_records_prog`` / ``_records_row_core``,
+    parallel.py:534-790, with the instance axis): every beam decision is
+    made on the device by :func:`site_step`, and the record says what was
+    decided, for the host to replay exact float64 energies, states,
+    degeneracies and droplet trees.
+
+    beam: vind (B, M, Nx+1) int32, Eng (B, M) float64, prob (B, M), valid
+    (B, M). row: the per-site stacks of :func:`row_step` without AT and
+    RRs, which come from the boundary row AT_row (B, Nx, D, lv, D) and
+    Wt_row. C is the candidate cap; ``select`` "topk" (the prob-ordered
+    top C) or "compact" (tnax's branch-major order, which it takes at C >=
+    16*M). P (default C) is the pull cap: the candidates are stably sorted
+    by slot, the merged ones first, and the first P are recorded, with rep
+    remapped into that prefix and clamped; n_valid > P flags the site.
+
+    Writes the fields of :data:`RECORD_FIELDS` into ``rec`` (views (B,
+    Nx, ...), e.g. :func:`record_views` of a row buffer; allocated if
+    None). Returns (beam', rec).
+    """
+    if select not in ("topk", "compact"):
+        raise ValueError(f"records select 'topk' or 'compact', got "
+                         f"{select!r}")
+    B, D = AT_row.shape[0], AT_row.shape[2]
+    dev = AT_row.device
+    P = C if P is None else min(P, C)
+    if rec is None:
+        layout = record_layout(B, Nx, M, P)
+        rec = record_views(torch.empty(layout[0], dtype=torch.uint8,
+                                       device=dev), layout)
+    beam = dict(beam, RL=_unit_rows(B, M, D, AT_row),
+                aidx=torch.arange(M, device=dev).expand(B, M))
+    row = dict(row, AT=AT_row,
+               RRs=engine.row_right_envs(AT_row, Wt_row,
+                                         beam["vind"][:, :, 1:]))
+    pos = torch.arange(C, device=dev).expand(B, C)
+    for nx in range(Nx):
+        beam, dec = site_step(beam, _site(row, nx), M=M, nx=nx, bits=bits,
+                              min_dEng=min_dEng, log2_cutoff=log2_cutoff,
+                              C=C, records=True,
+                              compact=select == "compact")
+        slot, valid = dec["slot"], beam["valid"]
+        # compaction: the merged candidates (slot >= 0) first, by slot;
+        # the sort is stable, so a slot keeps the candidates' order
+        full = torch.sort(torch.where(slot >= 0, slot, C), dim=1,
+                          stable=True).indices
+        tk = full[:, :P]
+        inv = torch.empty_like(full).scatter_(1, full, pos)
+        rep = torch.clamp(torch.where(valid, inv.gather(1, dec["rep"]), 0),
+                          0, P - 1)
+        for name, x in (("src", dec["src"].gather(1, tk)),
+                        ("indc", dec["indc"].gather(1, tk)),
+                        ("slot", slot.gather(1, tk)), ("rep", rep),
+                        ("cprob", _f32(dec["vals"].gather(1, tk))),
+                        ("out_prob", _f32(beam["prob"])),
+                        ("out_valid", valid),
+                        ("n_valid", (slot >= 0).sum(dim=1)),
+                        ("count", dec["count"]),
+                        ("disc_cut", _f32(dec["disc"])),
+                        ("disc_m", _f32(dec["disc_m"])),
+                        ("minP", _f32(dec["mq"])),
+                        ("minP_core", _f32(dec["mqc"]))):
+            rec[name][:, nx] = x
+    beam = {k: beam[k] for k in ("vind", "Eng", "prob", "valid")}
+    beam["vind"] = _shift_vind(beam["vind"])
+    return beam, rec
+
+
+def search_inputs(ctx):
+    """The search's (B, Ny, ...) per-site stacks of a contraction context:
+    the Boltzmann tables with the states last (made once per search, so a
+    branch's column is one contiguous run for the epilogue K3), drindex,
+    the raw float64 energy tables, dmap, rmap and nvalid on the device,
+    and the host list cols."""
+    f = ctx.tables
+    Es, Esl, Esu = ctx.energy_rows()
+    return dict(lBT=boltzmann_columns(ctx.lB), drindex=ctx.drindex, Es=Es,
+                Esl=Esl, Esu=Esu, dmap=f["dmap"], rmap=f["rmap"],
+                nvalid=f["nvalid"], cols=f["cols"])
+
+
+# ---------------------------------------------------------------------------
+# the flagship pipelines
+# ---------------------------------------------------------------------------
+
 class _StageClock:
-    """Seconds per pipeline stage, each ended by a device synchronize;
-    inert when no dict is given."""
+    """Seconds per pipeline stage, each ended by a device synchronize and
+    added to the stage's entry of the dict (a stage run twice, as in a
+    retried search, counts twice); inert when no dict is given."""
 
     def __init__(self, out, device):
         self.out, self.device = out, device
@@ -341,160 +587,91 @@ class _StageClock:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()
-        self.out[name] = now - self.t
+        self.out[name] = self.out.get(name, 0.0) + now - self.t
         self.t = now
 
 
-def _fleet_tables(solvers, pre_steps, max_scale):
-    """Check that ``solvers`` form a fleet and stack what the pipeline
-    takes into device tensors with a leading instance axis.
-
-    The instances must share (Ny, Nx, Np, lh, lv), beta, device and dtype
-    (ValueError otherwise). Returns a dict of the dims, the device and
-    dtype, the stacked tables of the ladder and the PEPS rows, the
-    ladder's betas and max_scale, nvalid (B, Ny, Nx) and the host list
-    cols (Ny, Nx) of snake-order columns.
-    """
-    if not solvers:
-        raise ValueError("a fleet needs at least one solver")
-    ins0 = solvers[0]
-    grids = [engine.pad_grid(ins.problem) for ins in solvers]
-    shape = lambda g: (g.Ny, g.Nx, g.Np, g.lh, g.lv)   # noqa: E731
-    for ins, g in zip(solvers, grids):
-        if shape(g) != shape(grids[0]):
-            raise ValueError(f"fleet instances must share (Ny, Nx, Np, lh, "
-                             f"lv): {shape(g)} != {shape(grids[0])}")
-        if ins.beta != ins0.beta:
-            raise ValueError(f"fleet instances share one beta: {ins.beta} "
-                             f"!= {ins0.beta}")
-        if (ins.device, ins.dtype) != (ins0.device, ins0.dtype):
-            raise ValueError(f"fleet instances share one device and dtype: "
-                             f"{ins.device} {ins.dtype} != {ins0.device} "
-                             f"{ins0.dtype}")
-    dtype, dev = ins0.dtype, ins0.device
-    Ny, Nx, _, lh, lv = shape(grids[0])
-    B = len(solvers)
-
-    def fleet(arrays, dt=dtype):
-        """Stack one host array per instance into a device tensor."""
-        return torch.as_tensor(np.stack(arrays), device=dev).to(dt)
-
-    return dict(
-        B=B, Ny=Ny, Nx=Nx, lh=lh, lv=lv, dtype=dtype, device=dev,
-        Es=fleet([g.Es for g in grids]), Esl=fleet([g.Esl for g in grids]),
-        Esu=fleet([g.Esu for g in grids]),
-        dmap=fleet([g.dmap for g in grids], torch.int32),
-        rmap=fleet([g.rmap for g in grids], torch.int32),
-        X0={k: fleet([v] * B)
-            for k, v in engine.identity_gauges(grids[0]).items()},
-        ndall=fleet([ins.problem.ld[: Ny - 1] for ins in solvers],
-                    torch.int32),
-        nvalid=fleet([g.nstates for g in grids], torch.int64),
-        betas=[ins0.beta * 2.0 ** (nn - pre_steps)
-               for nn in range(pre_steps)],
-        max_scale=float(2.0 ** np.floor(np.log2(np.sqrt(max_scale)))),
-        beta=float(ins0.beta),
-        cols=(np.arange(Ny)[:, None] * Nx
-              + np.arange(Nx)[None, :]).tolist())
+def _check_select(select):
+    """tnax's ``select``: "topk" and "sort" are bit-identical selections,
+    both the port's stable sort; its "radix" and "compact" modes are not
+    ported (measured no faster than topk)."""
+    if select not in ("topk", "sort"):
+        raise ValueError(f"select must be 'topk' or 'sort', got {select!r} "
+                         f"('radix' and 'compact' are not ported)")
 
 
-def _boundary_stages(f, clock, *, Dmax, tolS, tolV, max_sweeps, pre_Dmax,
-                     pre_sweeps, rsvd, omega):
+def _boundary_stages(solvers, f, clock, *, pre_steps, max_scale, Dmax, tolS,
+                     tolV, max_sweeps, pre_Dmax, pre_sweeps, rsvd, omega):
     """Stages 1-3 of the flagship pipelines of B instances (the fleet
-    ``f`` of :func:`_fleet_tables`): the balancing beta ladder (gauges),
-    the gauged Boltzmann and traced row tensors at the target beta, and
-    the top boundary-MPS stacks. The ladder always zips up with the
-    sketch, as tnax's flagship does (its ladder reads the ambient
-    default); ``rsvd`` sets the main stack. Returns (lB, drindex, Wt,
-    rhoT)."""
-    lh, lv = f["lh"], f["lv"]
+    ``f`` of ``search.fleet_tables``): the balancing beta ladder
+    (gauges), the contraction context at the target beta (the gauged
+    Boltzmann and traced row tensors) and its top boundary-MPS stacks.
+    The ladder always zips up with the sketch, as tnax's flagship does
+    (its ladder reads the ambient default); ``rsvd`` sets the main stack.
+    Returns the context."""
     X, _ = pre._ladder_program(f["Es"], f["Esl"], f["Esu"], f["dmap"],
-                               f["rmap"], f["X0"], f["betas"], f["ndall"],
-                               f["max_scale"], Dmax=pre_Dmax, tolS=tolS,
-                               tolV=tolV, max_sweeps=pre_sweeps, lh=lh,
-                               lv=lv, omega=omega)
+                               f["rmap"], f["X0"],
+                               pre.ladder_betas(f["beta"], pre_steps),
+                               f["ndall"], pre.ladder_max_scale(max_scale),
+                               Dmax=pre_Dmax, tolS=tolS, tolV=tolV,
+                               max_sweeps=pre_sweeps, lh=f["lh"], lv=f["lv"],
+                               omega=omega)
     clock.lap("ladder")
-    lB, Wt = engine.peps_rows(f["Es"], f["Esl"], f["Esu"], f["dmap"],
-                              f["rmap"], X["Xl"], X["Xr"], X["Xu"], X["Xd"],
-                              f["beta"], lh=lh, lv=lv)
-    drindex = f["dmap"].long() * lh + f["rmap"].long()
+    ctx = ContractionContext(solvers, X, tables=f)
     clock.lap("peps")
-    rhoT = engine.build_rhoT(Wt, Dmax=Dmax, tolS=tolS, tolV=tolV,
-                             max_sweeps=max_sweeps, rsvd=rsvd,
-                             omega=omega)[0]
+    ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, rsvd=rsvd, omega=omega)
     clock.lap("boundary")
-    return lB, drindex, Wt, rhoT
-
-
-def _flagship_body(f, EsR, EslR, EsuR, *, M, bits, min_dEng, log2_cutoff,
-                   cand, Dmax, tolS, tolV, max_sweeps, pre_Dmax, pre_sweeps,
-                   rsvd=True, omega=None, stage_times=None):
-    """The flagship search pipeline of B instances at once: the stages of
-    :func:`_boundary_stages`, then the full beam search. Every tensor
-    carries the leading instance axis (tnax vmaps this body over the
-    fleet, parallel.py:1072-1076); one instance is B = 1. EsR, EslR, EsuR
-    are the raw float64 energy tables (B, Ny, Nx, ...). ``stage_times``,
-    if a dict, receives the seconds of the four stages (ladder, peps,
-    boundary, search), each ended by a synchronize. Returns (beam, aux).
-    """
-    clock = _StageClock(stage_times, f["device"])
-    lB, drindex, Wt, rhoT = _boundary_stages(
-        f, clock, Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
-        pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps, rsvd=rsvd, omega=omega)
-    # the Boltzmann tables with the states last, made once per search: a
-    # branch's column is then one contiguous run for the epilogue (K3)
-    grid_in = dict(lBT=boltzmann_columns(lB), drindex=drindex, Es=EsR,
-                   Esl=EslR, Esu=EsuR, dmap=f["dmap"], rmap=f["rmap"],
-                   nvalid=f["nvalid"], cols=f["cols"])
-    beam0 = _initial_beam(f["B"], M, Dmax, f["Nx"], f["Ny"], f["dtype"],
-                          f["device"])
-    beam, aux = full_search_scan(beam0, grid_in, rhoT, Wt, M=M, Nx=f["Nx"],
-                                 bits=bits, min_dEng=min_dEng,
-                                 log2_cutoff=log2_cutoff, cand=cand)
-    clock.lap("search")
-    return beam, aux
+    return ctx
 
 
 def multi_flagship_search_gs(solvers, M=2 ** 10, relative_P_cutoff=1e-6,
                              min_dEng=1e-12, Dmax=32, tolS=1e-16, tolV=1e-10,
-                             max_sweeps=2, cand_factor=8, pre_steps=1,
+                             max_sweeps=2, graduate_truncation=True,
+                             cand_factor=8, select="topk", pre_steps=1,
                              pre_Dmax=8, pre_sweeps=20, max_scale=1024,
-                             zipup_rsvd=True, omega=None, stage_times=None):
+                             zipup_rsvd=None, omega=None, stage_times=None):
     """Fleet GS search: the flagship pipeline (balancing ladder, boundary
     build, beam search) run once over a batch of same-shape Solver
     instances, every stage with a leading instance axis (tnax's
-    ``multi_flagship_search_gs``, topk selection). Each instance's result
-    is the one :func:`flagship_search_gs` gives it alone.
+    ``multi_flagship_search_gs``, with its arguments). Each instance's
+    result is the one :func:`flagship_search_gs` gives it alone.
 
     The instances must share (Ny, Nx, Np, lh, lv), beta, device and dtype
     (ValueError otherwise). ``cand_factor`` sizes each instance's merge
     candidate set at ``cand_factor*M`` (None = the full M*Np expansion,
-    the uncapped exact merge; kernel K2 takes any cap). ``omega`` is the
-    zip-up sketch, shared
-    by the fleet (see ``bmps.zipup_apply``): a callable
-    ``(L, n, k) -> tensor`` or None for the seeded default.
-    ``stage_times``, if a dict, receives the seconds of the four stages
-    of the whole batch.
+    the uncapped exact merge; kernel K2 takes any cap). ``select`` is
+    "topk" or "sort" (the same selection); ``graduate_truncation`` has no
+    effect on the zip-up; ``zipup_rsvd`` is None or True (the sketch) or
+    False (the exact SVD). ``omega`` is the zip-up sketch, shared by the
+    fleet (see ``bmps.zipup_apply``): a callable ``(L, n, k) -> tensor``
+    or None for the seeded default. ``stage_times``, if a dict, receives
+    the seconds of the four stages of the whole batch.
 
     Returns a list with one dict(energy, states, prob, degeneracy,
     negative_probability, negative_probability_core,
     discarded_probability, merge_overflow, count_max) per instance, as
     tnax does; ``energy`` is the beam's float64 energy.
     """
-    f = _fleet_tables(solvers, pre_steps, max_scale)
+    _check_select(select)
+    check_rsvd(zipup_rsvd)
+    f = fleet_tables(solvers)
     bits = max(1, int(np.ceil(np.log2(max(f["lh"], f["lv"])))))
     log2_cutoff = float(np.log2(relative_P_cutoff)) \
         if relative_P_cutoff > 0 else NEG
     cand = None if cand_factor is None else int(cand_factor) * M
-    rows = [_padded_energy_rows_problem(ins.problem) for ins in solvers]
-    EsR, EslR, EsuR = (torch.as_tensor(np.stack([r[i] for r in rows]),
-                                       device=f["device"])
-                       for i in range(3))
-    beam, aux = _flagship_body(
-        f, EsR, EslR, EsuR, M=M, bits=bits, min_dEng=min_dEng,
-        log2_cutoff=log2_cutoff, cand=cand, Dmax=Dmax, tolS=tolS, tolV=tolV,
-        max_sweeps=max_sweeps, pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps,
-        rsvd=zipup_rsvd, omega=omega, stage_times=stage_times)
+    clock = _StageClock(stage_times, f["device"])
+    ctx = _boundary_stages(
+        solvers, f, clock, pre_steps=pre_steps, max_scale=max_scale,
+        Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
+        pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps, rsvd=zipup_rsvd,
+        omega=omega)
+    beam0 = _initial_beam(f["B"], M, Dmax, f["Nx"], f["Ny"], f["dtype"],
+                          f["device"])
+    beam, aux = full_search_scan(beam0, search_inputs(ctx), ctx.rhoT, ctx.Wt,
+                                 M=M, Nx=f["Nx"], bits=bits,
+                                 min_dEng=min_dEng, log2_cutoff=log2_cutoff,
+                                 cand=cand)
+    clock.lap("search")
     # one pull of the final beams and diagnostics
     host = {k: beam[k].cpu().numpy()
             for k in ("valid", "Eng", "prob", "deg", "states")}
@@ -518,19 +695,21 @@ def multi_flagship_search_gs(solvers, M=2 ** 10, relative_P_cutoff=1e-6,
 
 def flagship_search_gs(ins, M=2 ** 10, relative_P_cutoff=1e-6,
                        min_dEng=1e-12, Dmax=32, tolS=1e-16, tolV=1e-10,
-                       max_sweeps=2, cand_factor=8, pre_steps=1, pre_Dmax=8,
-                       pre_sweeps=20, max_scale=1024, zipup_rsvd=True,
+                       max_sweeps=2, graduate_truncation=True,
+                       cand_factor=8, select="topk", pre_steps=1, pre_Dmax=8,
+                       pre_sweeps=20, max_scale=1024, zipup_rsvd=None,
                        omega=None, stage_times=None):
     """Flagship GS search on ``ins.device`` in ``ins.dtype``: balancing
     preconditioner ladder, boundary build and beam search (tnax's
-    ``flagship_search_gs``, topk selection). It is the fleet of one:
+    ``flagship_search_gs``, with its arguments). It is the fleet of one:
     :func:`multi_flagship_search_gs` with B = 1, whose arguments and
     result keys it shares.
     """
     return multi_flagship_search_gs(
         [ins], M=M, relative_P_cutoff=relative_P_cutoff, min_dEng=min_dEng,
         Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
-        cand_factor=cand_factor, pre_steps=pre_steps, pre_Dmax=pre_Dmax,
+        graduate_truncation=graduate_truncation, cand_factor=cand_factor,
+        select=select, pre_steps=pre_steps, pre_Dmax=pre_Dmax,
         pre_sweeps=pre_sweeps, max_scale=max_scale, zipup_rsvd=zipup_rsvd,
         omega=omega, stage_times=stage_times)[0]
 
@@ -574,9 +753,7 @@ def sample_rows(beam, row, u_row, *, M, Nx):
             T2, row["lBT"][:, nx], row["drindex"][:, nx], row["dmap"][:, nx],
             row["rmap"][:, nx], row["nvalid"][:, nx], u_row[:, nx], AT, RL,
             vind, states, nx, row["cols"][nx], mq)
-    vind = torch.cat([torch.zeros_like(vind[:, :, :1]), vind[:, :, :-1]],
-                     dim=2)
-    return dict(RL=RL, vind=vind, states=states), mq
+    return dict(RL=RL, vind=_shift_vind(vind), states=states), mq
 
 
 def full_sample_scan(beam0, grid_in, rhoT, Wt, u, *, M, Nx):
@@ -594,18 +771,15 @@ def full_sample_scan(beam0, grid_in, rhoT, Wt, u, *, M, Nx):
     beam, mqs = dict(beam0), []
     for ny in range(Ny):
         beam["RL"] = _unit_rows(B, M, D, rhoT)
-        RRs = engine.row_right_envs(rhoT[:, ny + 1], Wt[:, ny],
-                                    beam["vind"][:, :, 1:])
-        row = {k: v[ny] if k == "cols" else v[:, ny]
-               for k, v in grid_in.items()}
-        row.update(AT=rhoT[:, ny + 1], RRs=RRs)
+        row = _row_inputs(grid_in, rhoT, Wt, beam, ny)
         beam, mq = sample_rows(beam, row, u[:, ny], M=M, Nx=Nx)
         mqs.append(mq)
     return beam, torch.stack(mqs, 1).amin(1)
 
 
-def _flagship_sample_body(f, u, *, M, Dmax, tolS, tolV, max_sweeps,
-                          pre_Dmax, pre_sweeps, rsvd=True, omega=None,
+def _flagship_sample_body(solvers, f, u, *, M, Dmax, tolS, tolV,
+                          max_sweeps, pre_steps, pre_Dmax, pre_sweeps,
+                          max_scale, rsvd=None, omega=None,
                           stage_times=None):
     """The Gibbs sampling pipeline of B instances at once (tnax
     parallel.py:1438-1467, vmapped there): the stages of
@@ -614,22 +788,24 @@ def _flagship_sample_body(f, u, *, M, Dmax, tolS, tolV, max_sweeps,
     seconds of the four stages (ladder, peps, boundary, sample). Returns
     (states (B, M, Ny*Nx), mq (B,))."""
     clock = _StageClock(stage_times, f["device"])
-    lB, drindex, Wt, rhoT = _boundary_stages(
-        f, clock, Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
+    ctx = _boundary_stages(
+        solvers, f, clock, pre_steps=pre_steps, max_scale=max_scale,
+        Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
         pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps, rsvd=rsvd, omega=omega)
     B, Ny, Nx = f["B"], f["Ny"], f["Nx"]
     # the Boltzmann tables with the states last, made once per pass, as
     # for the search: a walker's column is one contiguous run for K4
-    grid_in = dict(lBT=boltzmann_columns(lB), drindex=drindex,
+    grid_in = dict(lBT=boltzmann_columns(ctx.lB), drindex=ctx.drindex,
                    dmap=f["dmap"], rmap=f["rmap"], nvalid=f["nvalid"],
                    cols=f["cols"])
     dev = f["device"]
-    beam0 = dict(RL=_unit_rows(B, M, Dmax, rhoT),
+    beam0 = dict(RL=_unit_rows(B, M, Dmax, ctx.rhoT),
                  vind=torch.zeros((B, M, Nx + 1), dtype=torch.int32,
                                   device=dev),
                  states=torch.zeros((B, M, Nx * Ny), dtype=torch.int32,
                                     device=dev))
-    beam, mq = full_sample_scan(beam0, grid_in, rhoT, Wt, u, M=M, Nx=Nx)
+    beam, mq = full_sample_scan(beam0, grid_in, ctx.rhoT, ctx.Wt, u, M=M,
+                                Nx=Nx)
     clock.lap("sample")
     return beam["states"], mq
 
@@ -646,15 +822,17 @@ def instance_uniforms(seed, b, shape, dtype, device):
 
 
 def multi_flagship_sample(solvers, M=2 ** 10, Dmax=32, tolS=1e-15,
-                          tolV=1e-10, max_sweeps=20, seed=0, pre_steps=1,
+                          tolV=1e-10, max_sweeps=20,
+                          graduate_truncation=True, seed=0, pre_steps=1,
                           pre_Dmax=8, pre_sweeps=20, max_scale=1024,
-                          zipup_rsvd=True, omega=None, uniforms=None,
-                          stage_times=None):
+                          zipup_rsvd=None, mesh=None, omega=None,
+                          uniforms=None, stage_times=None):
     """Fleet Gibbs sampling: the sampling pipeline (balancing ladder,
     boundary build, M-walker sampling pass) run once over a batch of
     same-shape Solver instances, every stage with a leading instance axis
-    (tnax's ``multi_flagship_sample`` without a mesh; the reference's
-    production pattern of e02).
+    (tnax's ``multi_flagship_sample``, with its arguments; the reference's
+    production pattern of e02). ``mesh`` (several devices) is not ported:
+    NotImplementedError unless None.
 
     The instances must share (Ny, Nx, Np, lh, lv), beta, device and dtype
     (ValueError otherwise). Random numbers: with ``uniforms=None``
@@ -662,16 +840,20 @@ def multi_flagship_sample(solvers, M=2 ** 10, Dmax=32, tolS=1e-15,
     from its own generator on the device, seeded from (seed, b) alone
     (:func:`instance_uniforms`); ``uniforms`` (B, Ny, Nx, M) in [0, 1)
     injects them instead, walker m at site (ny, nx) using
-    ``uniforms[b, ny, nx, m]``. ``omega`` is the zip-up sketch (see
-    :func:`multi_flagship_search_gs`). ``stage_times``, if a dict,
-    receives the seconds of the four stages (ladder, peps, boundary,
-    sample) of the whole batch.
+    ``uniforms[b, ny, nx, m]``. ``omega`` is the zip-up sketch and
+    ``zipup_rsvd`` its switch (see :func:`multi_flagship_search_gs`).
+    ``stage_times``, if a dict, receives the seconds of the four stages
+    (ladder, peps, boundary, sample) of the whole batch.
 
     Returns a list with one dict(states (M, Ny*Nx) int32 block states,
     energy (M,) exact float64 energies replayed on the host,
     negative_probability) per instance, as tnax does.
     """
-    f = _fleet_tables(solvers, pre_steps, max_scale)
+    if mesh is not None:
+        raise NotImplementedError("sampling over a device mesh is not "
+                                  "ported yet")
+    check_rsvd(zipup_rsvd)
+    f = fleet_tables(solvers)
     dtype, dev = f["dtype"], f["device"]
     shape = (f["B"], f["Ny"], f["Nx"], M)
     if uniforms is None:
@@ -683,8 +865,9 @@ def multi_flagship_sample(solvers, M=2 ** 10, Dmax=32, tolS=1e-15,
             raise ValueError(f"uniforms must have shape {shape} "
                              f"(B, Ny, Nx, M), got {tuple(u.shape)}")
     states, mq = _flagship_sample_body(
-        f, u, M=M, Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
-        pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps, rsvd=zipup_rsvd,
+        solvers, f, u, M=M, Dmax=Dmax, tolS=tolS, tolV=tolV,
+        max_sweeps=max_sweeps, pre_steps=pre_steps, pre_Dmax=pre_Dmax,
+        pre_sweeps=pre_sweeps, max_scale=max_scale, rsvd=zipup_rsvd,
         omega=omega, stage_times=stage_times)
     states, mq = states.cpu().numpy(), mq.cpu().numpy()   # one pull
     return [dict(states=states[b],
@@ -694,13 +877,14 @@ def multi_flagship_sample(solvers, M=2 ** 10, Dmax=32, tolS=1e-15,
 
 
 def flagship_sample(ins, M=2 ** 10, Dmax=32, tolS=1e-15, tolV=1e-10,
-                    max_sweeps=20, seed=0, pre_steps=1, pre_Dmax=8,
-                    pre_sweeps=20, max_scale=1024, zipup_rsvd=True,
-                    omega=None, uniforms=None, stage_times=None):
+                    max_sweeps=20, graduate_truncation=True, seed=0,
+                    pre_steps=1, pre_Dmax=8, pre_sweeps=20, max_scale=1024,
+                    zipup_rsvd=None, omega=None, uniforms=None,
+                    stage_times=None):
     """Gibbs sampling on ``ins.device`` in ``ins.dtype``: balancing
     preconditioner ladder, boundary build and the M-walker sampling pass
-    (tnax's ``flagship_sample``). It is the fleet of one:
-    :func:`multi_flagship_sample` with B = 1, so ``seed`` gives the
+    (tnax's ``flagship_sample``, with its arguments). It is the fleet of
+    one: :func:`multi_flagship_sample` with B = 1, so ``seed`` gives the
     uniforms of instance 0 of a fleet, and ``uniforms`` (Ny, Nx, M)
     injects them. Returns dict(states, energy, negative_probability).
     """
@@ -708,31 +892,10 @@ def flagship_sample(ins, M=2 ** 10, Dmax=32, tolS=1e-15, tolV=1e-10,
         uniforms = torch.as_tensor(uniforms)[None]
     return multi_flagship_sample(
         [ins], M=M, Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
-        seed=seed, pre_steps=pre_steps, pre_Dmax=pre_Dmax,
-        pre_sweeps=pre_sweeps, max_scale=max_scale, zipup_rsvd=zipup_rsvd,
-        omega=omega, uniforms=uniforms, stage_times=stage_times)[0]
-
-
-def _padded_energy_rows_problem(problem):
-    """Raw (unshifted) energy tables padded to grid shapes (NumPy),
-    cached on the problem."""
-    cached = getattr(problem, "_energy_rows_np", None)
-    if cached is not None:
-        return cached
-    g = engine.pad_grid(problem)
-    Ny, Nx, Np, lh, lv = g.Ny, g.Nx, g.Np, g.lh, g.lv
-    Es = np.zeros((Ny, Nx, Np))
-    Esl = np.zeros((Ny, Nx, Np, lh))
-    Esu = np.zeros((Ny, Nx, Np, lv))
-    for ny in range(Ny):
-        for nx in range(Nx):
-            t = problem.site(ny, nx)
-            n = len(t.Es)
-            Es[ny, nx, :n] = t.Es
-            Esl[ny, nx, :n, :t.Esl.shape[1]] = t.Esl
-            Esu[ny, nx, :n, :t.Esu.shape[1]] = t.Esu
-    problem._energy_rows_np = (Es, Esl, Esu)
-    return problem._energy_rows_np
+        graduate_truncation=graduate_truncation, seed=seed,
+        pre_steps=pre_steps, pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps,
+        max_scale=max_scale, zipup_rsvd=zipup_rsvd, omega=omega,
+        uniforms=uniforms, stage_times=stage_times)[0]
 
 
 def exact_energies_problem(problem, states):

@@ -143,6 +143,39 @@ def _balance_one_interface(B, T, nd, max_scale):
     return st(s2), st(s3), st(o12), st(o22), st(o13), st(o23)
 
 
+def ladder_betas(beta, steps):
+    """The ladder's rungs below the target beta: beta * 2**(n - steps)."""
+    return [beta * 2.0 ** (nn - steps) for nn in range(steps)]
+
+
+def ladder_max_scale(max_scale):
+    """The clip of a rung's scales, the largest power of two at most
+    sqrt(max_scale) (a rung's two sweeps multiply)."""
+    return float(2.0 ** np.floor(np.log2(np.sqrt(max_scale))))
+
+
+def overlaps_ud(overs):
+    """tnax's ``overlaps_ud`` of one instance from the ladder's overlaps
+    ``overs`` (R, 4, Ny-1, Nx) (host NumPy): per rung, the worst overlap
+    before a balancing step and the better of it and the overlap after,
+    over the sweeps' visiting order (right to left, then left to right;
+    tnax precondition.py:626-640). Returns (2 R, Ny-1)."""
+    R, _, Ni, Nx = overs.shape
+    rows = []
+    for r in range(R):
+        o1_2, o2_2, o1_3, o2_3 = overs[r]
+        overlaps = np.ones((2, Ni))
+        for i in range(Ni):
+            seq = [(o1_2[i, nx], o2_2[i, nx]) for nx in range(Nx - 1, -1, -1)]
+            seq += [(o1_3[i, nx], o2_3[i, nx]) for nx in range(Nx)]
+            for o1, o2 in seq:
+                if o1 < overlaps[0, i]:
+                    overlaps[0, i] = o1
+                    overlaps[1, i] = max(o1, o2)
+        rows.append(overlaps)
+    return np.vstack(rows) if rows else np.empty((0, Ni))
+
+
 def _ladder_program(Es, Esl, Esu, dmap, rmap, X0, betas, ndall, max_scale,
                     *, Dmax, tolS, tolV, max_sweeps, lh, lv, omega=None):
     """The balancing beta ladder of B instances: for each rung, the gauged

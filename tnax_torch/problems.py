@@ -18,7 +18,7 @@ Bit/spin conventions (as tnax, for golden parity):
   - a leg index is the integer formed by the bits of the boundary-spin
     subset (in ascending block-spin order), same 0/1 convention.
 
-RMF problems, ``rotate`` and ``add_noise`` are not ported yet.
+RMF problems are not ported yet.
 """
 
 from __future__ import annotations
@@ -264,7 +264,7 @@ class IsingProblem(Problem):
         # padded-grid / device-table caches (engine.pad_grid,
         # ContractionContext._build_device_tensors) key off these
         self._grid_cache = None
-        self._dev_grid_cache = None
+        self._energy_rows_np = None
 
     # -- tables -------------------------------------------------------------
     def site(self, ny: int, nx: int) -> SiteTables:
@@ -288,6 +288,48 @@ class IsingProblem(Problem):
         )
         self._site_cache[key] = tab
         return tab
+
+    # -- mutation -----------------------------------------------------------
+    def rotate(self):
+        """Rotate the lattice 90 degrees (reference
+        `tnac4o/tnac4o.py:297-313`).
+
+        Returns ``order_i`` with ``order_i[jj] = ii`` for cluster positions
+        ``ii`` (pre-rotation linear index) and ``jj`` (post-rotation linear
+        index), as the reference defines it; the solver composes
+        cumulative orders with it.
+        """
+        Nx, Ny, Nc = self.Nx, self.Ny, self.Nc
+        order_full = np.arange(self.L)
+        order_i = np.arange(Nx * Ny)
+        for nx in range(Nx):
+            for ny in range(Ny):
+                ii = ny * Nc * Nx + nx * Nc + np.arange(Nc)
+                jj = (Nx - nx - 1) * Nc * Ny + ny * Nc + np.arange(Nc)
+                order_full[ii] = jj
+                order_i[(Nx - nx - 1) * Ny + ny] = ny * Nx + nx
+        self.Nx, self.Ny = Ny, Nx
+        Jp = self.J[order_full, :][:, order_full]
+        self.J = (scipy.sparse.triu(Jp) + scipy.sparse.tril(Jp, -1).T).tocsr()
+        self._build()
+        return order_i
+
+    def add_noise(self, amplitude=1e-7, rng=None):
+        """Uniform noise in [-amplitude, amplitude) on the nonzero couplings
+        (reference `tnac4o/tnac4o.py:928-933`).
+
+        With ``rng=None`` the *global* legacy NumPy RNG is used, as the
+        reference's ``np.random.rand``, so ``np.random.seed(s);
+        solver.add_noise(...)`` gives the same couplings as tnax."""
+        J = self.J.tolil()
+        rows, cols = J.nonzero()
+        u = np.random.rand(len(rows)) if rng is None \
+            else rng.random(len(rows))
+        noise = (u * 2 - 1) * amplitude
+        for i, j, k in zip(rows, cols, noise):
+            J[i, j] += k
+        self.J = J.tocsr()
+        self._build()
 
     # -- decode -------------------------------------------------------------
     def decode_states(self, states: np.ndarray, ind0, L: int) -> np.ndarray:
