@@ -939,8 +939,8 @@ def spectrum_run(tt, torch, J, n, dtype, label, *, ee, M, Dmax,
         ins.precondition(stage_times=stages)
     ins.search_low_energy_spectrum(
         excitations_encoding=ee, M=M, relative_P_cutoff=1e-8, Dmax=Dmax,
-        max_dEng=1.0, cand_factor=cand_factor, zipup_rsvd=zipup_rsvd,
-        stage_times=stages)
+        max_dEng=1.0, path="device", cand_factor=cand_factor,
+        zipup_rsvd=zipup_rsvd, stage_times=stages)
     t1 = time.perf_counter()
     ins.decode_low_energy_states(max_dEng=1.0)
     seconds = time.perf_counter() - t0
@@ -971,6 +971,14 @@ def spectrum_run(tt, torch, J, n, dtype, label, *, ee, M, Dmax,
     return seconds, stages, ins, counts, bound
 
 
+def sorted_pairs(E, S):
+    """Decoded (energies, states) sorted by energy (to 1e-9), then state:
+    the order in which two lists of degenerate states compare."""
+    import numpy as np
+    order = np.lexsort(tuple(np.asarray(S).T[::-1]) + (np.round(E, 9),))
+    return np.asarray(E)[order], np.asarray(S)[order]
+
+
 def spectrum_phase(tt, torch):
     """Phase 6: the low-energy spectrum through the Solver's entry points.
     (a) chimera-128 in float64, exact-SVD zip-up, held to the committed
@@ -985,11 +993,6 @@ def spectrum_phase(tt, torch):
         orc = json.load(f)
     J128 = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(os.path.join(
         DATA, orc["instance"]))), 1 / 75)
-
-    def sorted_pairs(E, S):
-        order = np.lexsort(tuple(np.asarray(S).T[::-1])
-                           + (np.round(E, 9),))
-        return np.asarray(E)[order], np.asarray(S)[order]
 
     # (a) parity with tnax's oracle on the card
     for run in orc["runs"]:
@@ -1094,6 +1097,355 @@ def spectrum_phase(tt, torch):
     return runs["f32 warm 2"][3]
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the Solver's own paths
+# ---------------------------------------------------------------------------
+
+def e05_model():
+    """The 3x5 lattice of 3-state variables with Potts-like penalty
+    factors of ``examples/e05_minimal_rmf.py`` (copied: the example
+    imports tnax)."""
+    import numpy as np
+    Nx, Ny = 5, 3
+    N = np.zeros((Ny, Nx), dtype=int) + 3
+    fun = {1: np.array([[0, 1, 1], [1, 0, 1], [1, 1, 0]]),
+           2: np.array([-1.5, 0, 1.5]),
+           3: np.array([1.25, 0, -1.25])}
+    fac = {}
+    for ny in range(Ny):
+        for nx in range(Nx - 1):
+            fac[(ny, nx, ny, nx + 1)] = 1
+    for ny in range(Ny - 1):
+        for nx in range(Nx):
+            fac[(ny, nx, ny + 1, nx)] = 1
+    for nx in range(Nx):
+        fac[(0, nx)] = 2
+        fac[(1, nx)] = 3
+        fac[(2, nx)] = 2
+    return {"fun": fun, "fac": fac, "N": N, "Nx": Nx, "Ny": Ny}
+
+
+def timed(torch, fn):
+    """(seconds, launch counts, stage times) of ``fn(stages)``, the
+    counts set to 0 just before and read just after."""
+    from tnax_torch import kernels
+    stages = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fn(stages)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, kernels.launch_counts(), stages
+
+
+def fmt(stages):
+    return " ".join(f"{k}={v:.3f}" for k, v in stages.items())
+
+
+def gs_recheck(tt, J, ins, label):
+    """Gate the Solver's energy on ``energy_Jij`` of its decoded state."""
+    E = float(tt.energy_Jij(J, ins.binary_states(1))[0])
+    err = abs(float(ins.energy[0]) - E)
+    check(err <= 1e-9, f"{label}: energy {ins.energy[0]} differs from the "
+          f"recheck {E} by {err}")
+    return E
+
+
+def solver_phase(tt, torch):
+    """Phase 7: the Solver's own paths, through its methods only.
+    (a) chimera-2048: precondition() then search_ground_state(path=
+    "device"), f32 cold + warm; (b) the same gauges, path="host", f32;
+    (c) chimera-512 s1 in f64, the host search against the device search
+    at the full expansion and the GS oracle; (d) e02 sampling on s1, both
+    paths, f32 and f64, the f64 means against tnax's sampling oracle; (e)
+    the chimera-128 spectrum oracle's point in f64 on the host path,
+    against the oracle and the device path; (f) the e05 RMF model, f64 and
+    f32, both spectrum and search paths, with K2 and K3 against their
+    plain versions at its widths; (g) save and load of (a)'s and (e)'s
+    ee=2 results. Returns the launch counts of the f32 Solver runs on the
+    device path and on the host path."""
+    import tempfile
+    import numpy as np
+    from tnax_torch import kernels, search
+    t_phase = time.perf_counter()
+    solver = {}
+    solver_host = {}
+
+    # (a) device search at full size
+    J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(INSTANCE)), 1 / 75)
+    with open(ORACLE) as f:
+        orc = json.load(f)
+    gs_kw = dict(M=1024, relative_P_cutoff=1e-8, Dmax=32)
+    for label in ("f32 cold", "f32 warm"):
+        ins = tt.Solver(mode="Ising", Nx=16, Ny=16, Nc=8, J=J, beta=3,
+                        device="cuda", dtype=torch.float32)
+
+        def run(stages):
+            ins.precondition(stage_times=stages)
+            ins.search_ground_state(path="device", stage_times=stages,
+                                    **gs_kw)
+        seconds, counts, stages = timed(torch, run)
+        E = gs_recheck(tt, J, ins, f"solver 2048 device {label}")
+        print(f"solver 2048 device {label}: {seconds:.3f} s  stages "
+              f"{fmt(stages)}  energy {ins.energy[0]:.6f} recheck {E:.6f} "
+              f"(f64 oracle {orc['energy']})  deg {ins.degeneracy}  "
+              f"merge_overflow {ins.merge_overflow}  launches {counts}",
+              flush=True)
+        for k in SEARCH_KERNELS:
+            check(counts[k] > 0, f"solver 2048 device {label}: kernel {k} "
+                  f"was not launched")
+        check(counts["merge"] == counts["marginal_epilogue"] == 256,
+              f"solver 2048 device {label}: K2/K3 launches {counts}, want "
+              f"one per site (256)")
+        solver.update({k: counts[k] for k in SEARCH_KERNELS})
+    ins_a = ins
+
+    # (b) host search at full size, on (a)'s gauges; the wait of each
+    # site's read is timed by wrapping search.host_read
+    waits = []
+    host_read = search.host_read
+
+    def timed_read(*ts):
+        t0 = time.perf_counter()
+        out = host_read(*ts)
+        waits.append(time.perf_counter() - t0)
+        return out
+    search.host_read = timed_read
+    try:
+        seconds, counts, stages = timed(
+            torch, lambda st: ins.search_ground_state(
+                path="host", stage_times=st, **gs_kw))
+    finally:
+        search.host_read = host_read
+    E = gs_recheck(tt, J, ins, "solver 2048 host f32")
+    per_site = stages["search"] / 256
+    print(f"solver 2048 host f32: {seconds:.3f} s  stages {fmt(stages)}  "
+          f"energy {ins.energy[0]:.6f} recheck {E:.6f}, gap to the f64 "
+          f"oracle {orc['energy']}: {E - orc['energy']:.6g}  deg "
+          f"{ins.degeneracy} (oracle {orc['degeneracy']})  per site "
+          f"{1e3 * per_site:.2f} ms, of it waiting for the read "
+          f"{1e3 * sum(waits) / 256:.2f} ms ({len(waits)} reads), host "
+          f"bookkeeping {1e3 * (per_site - sum(waits) / 256):.2f} ms  "
+          f"launches {counts}", flush=True)
+    check(counts["marginal_epilogue"] == 256 and counts["merge"] == 0,
+          f"solver 2048 host f32: launches {counts}, want K3 once per site "
+          f"(256) and no K2")
+    solver_host.update({k: counts[k] for k in SEARCH_KERNELS})
+
+    # (c) host search in float64 at full width against the device search
+    # at the full expansion
+    base = FLEET[0]
+    J1 = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(base + ".txt")), 1 / 75)
+    with open(base + "_oracle.json") as f:
+        orc1 = json.load(f)
+    ins = tt.Solver(mode="Ising", Nx=8, Ny=8, Nc=8, J=J1, beta=3,
+                    device="cuda", dtype=torch.float64)
+    ins.precondition()
+    res = {}
+    for path, kw in (("host", {}), ("device", dict(cand_factor=None))):
+        seconds, counts, stages = timed(
+            torch, lambda st: ins.search_ground_state(
+                path=path, stage_times=st, **gs_kw, **kw))
+        E = gs_recheck(tt, J1, ins, f"solver 512 s1 {path} f64")
+        res[path] = (E, ins.degeneracy)
+        print(f"solver 512 s1 {path} f64: {seconds:.3f} s  stages "
+              f"{fmt(stages)}  energy {E:.9f} deg {ins.degeneracy} (oracle "
+              f"{orc1['energy']}, deg {orc1['degeneracy']})  launches "
+              f"{counts}", flush=True)
+        check(E <= orc1["energy"] + 1e-9, f"solver 512 s1 {path} f64: "
+              f"energy {E} above the oracle {orc1['energy']}")
+        check(counts["marginal_epilogue"] == 64, f"solver 512 s1 {path}: "
+              f"K3 launches {counts['marginal_epilogue']}, want 64")
+    check(abs(res["host"][0] - res["device"][0]) <= 1e-9
+          and res["host"][1] == res["device"][1],
+          f"solver 512 s1 f64: host {res['host']} != device {res['device']}")
+
+    # (d) sampling as e02 runs it, at the sampling oracle's ladder
+    with open(SAMPLE_ORACLE) as f:
+        sorc = json.load(f)
+    tol = 5 * sorc["std"] * (1 / E02_M + 1 / sorc["N"]) ** 0.5
+    for dtype, dl in ((torch.float32, "f32"), (torch.float64, "f64")):
+        ins = tt.Solver(mode="Ising", Nx=8, Ny=8, Nc=8, J=J1, beta=3,
+                        device="cuda", dtype=dtype)
+        # the oracle's ladder: two rungs at D=8, 20 sweeps, tolS 1e-15
+        seconds, counts, stages = timed(
+            torch, lambda st: ins.precondition(tolS=1e-15, stage_times=st))
+        print(f"solver e02 s1 {dl} precondition: {seconds:.3f} s  launches "
+              f"{counts}", flush=True)
+        check(counts["gebal"] > 0, f"solver e02 {dl}: K1 was not launched")
+        for path in ("host", "device"):
+            seconds, counts, stages = timed(
+                torch, lambda st: ins.gibbs_sampling(
+                    M=E02_M, Dmax=SAMPLE_KW["Dmax"], seed=0, path=path,
+                    stage_times=st))
+            E = tt.energy_Jij(J1, ins.binary_states())
+            err = float(abs(E - ins.energy).max())
+            mean = float(np.mean(ins.energy))
+            print(f"solver e02 s1 {dl} {path}: {seconds:.3f} s  stages "
+                  f"{fmt(stages)}  mean {mean:.6f} (tnax oracle "
+                  f"{sorc['mean']:.6f}, tolerance {tol:.6f})  recheck error "
+                  f"{err:.3g}  negative_probability "
+                  f"{ins.negative_probability:.3g}  launches {counts}",
+                  flush=True)
+            check(ins.energy.shape == (E02_M,) and err <= 1e-9,
+                  f"solver e02 {dl} {path}: energies differ from their "
+                  f"recheck by {err}")
+            check(counts == dict(gebal=0, merge=0, marginal_epilogue=0,
+                                 sample_site=64),
+                  f"solver e02 {dl} {path}: launches {counts}, want K4 once "
+                  f"per site")
+            if dtype == torch.float64:
+                check(abs(mean - sorc["mean"]) <= tol,
+                      f"solver e02 f64 {path}: mean {mean} more than {tol} "
+                      f"from the tnax oracle {sorc['mean']}")
+            else:
+                (solver if path == "device" else solver_host)[
+                    "sample_site"] = counts["sample_site"]
+
+    # (e) the host spectrum at the chimera-128 oracle's point
+    with open(SPECTRUM_ORACLE) as f:
+        sp = json.load(f)
+    J128 = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(os.path.join(
+        DATA, sp["instance"]))), 1 / 75)
+    spectra = {}
+    for run_o in sp["runs"]:
+        ee = run_o["excitations_encoding"]
+        for path in ("host", "device"):
+            ins = tt.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J128,
+                            beta=sp["beta"], device="cuda",
+                            dtype=torch.float64)
+            if ee > 1:
+                np.random.seed(7)
+                ins.add_noise(1e-7)
+
+            def run(stages):
+                ins.search_low_energy_spectrum(
+                    excitations_encoding=ee, M=sp["M"],
+                    relative_P_cutoff=sp["relative_P_cutoff"],
+                    Dmax=sp["Dmax"], max_dEng=sp["max_dEng"], path=path,
+                    cand_factor=sp["initial_cand_factor"],
+                    zipup_rsvd=sp["zipup_rsvd"], stage_times=stages)
+                ins.decode_low_energy_states(max_dEng=sp["max_dEng"])
+            seconds, counts, stages = timed(torch, run)
+            err = float(abs(tt.energy_Jij(noisy_couplings(ins),
+                                          ins.binary_states())
+                            - ins.energy).max())
+            print(f"solver spectrum 128 f64 ee={ee} {path}: {seconds:.3f} s "
+                  f" stages {fmt(stages)}  {len(ins.energy)} states (oracle "
+                  f"{len(run_o['energies'])}), degeneracy {ins.degeneracy} "
+                  f"(oracle {run_o['degeneracy']}), recheck error {err:.3g}"
+                  f"  launches {counts}", flush=True)
+            check(err <= 1e-9, f"solver spectrum ee={ee} {path}: decoded "
+                  f"energies differ from energy_Jij by {err}")
+            check(counts["marginal_epilogue"] > 0, f"solver spectrum ee={ee}"
+                  f" {path}: K3 was not launched")
+            spectra[path] = ins
+        got = sorted_pairs(spectra["host"].energy, spectra["host"].states)
+        for name, want in (("the oracle", sorted_pairs(run_o["energies"],
+                                                       run_o["states"])),
+                           ("the device path",
+                            sorted_pairs(spectra["device"].energy,
+                                         spectra["device"].states))):
+            same = len(got[0]) == len(want[0]) and bool(
+                np.abs(got[0] - want[0]).max() <= 1e-9) \
+                and np.array_equal(got[1], want[1])
+            check(same, f"solver spectrum ee={ee}: the host path's "
+                  f"{len(got[0])} states are not those of {name} "
+                  f"({len(want[0])})")
+        print(f"  solver spectrum 128 ee={ee}: the host path decodes the "
+              f"oracle's and the device path's sets of states", flush=True)
+    ins_e = spectra["host"]
+
+    # (f) RMF: e05's model, both spectrum paths and both search paths
+    rng = np.random.default_rng(5)
+    for dtype in (torch.float32, torch.float64):
+        # K3 and K2 at its widths against their plain versions
+        Np = lh = lv = 3
+        lB = torch.as_tensor(-np.abs(rng.standard_normal((1, Np, lh, lv)))
+                             * 8).to("cuda", dtype)
+        T2 = torch.as_tensor(np.abs(rng.standard_normal((1, 1024, lh * lv)))
+                             ).to("cuda", dtype)
+        args = (T2, kernels.marginal.boltzmann_columns(lB),
+                torch.tensor([[0, 4, 8]], device="cuda"),
+                torch.as_tensor(rng.integers(0, 3, (1, 1024))).cuda(),
+                torch.as_tensor(rng.integers(0, 3, (1, 1024))).cuda(),
+                torch.tensor([3], device="cuda"),
+                torch.as_tensor(-np.abs(rng.standard_normal((1, 1024)))
+                                ).to("cuda", dtype),
+                torch.ones((1, 1024), dtype=torch.bool, device="cuda"),
+                float(np.log2(1e-12)))
+        k3 = list(zip(kernels.marginal_epilogue(*args),
+                      kernels.marginal_epilogue_plain(*args)))
+        err = max(max_abs_err(a, b, torch) for a, b in k3)
+        kb = (1024 - 1).bit_length() + 2 * 2 + 1
+        keyed = (torch.as_tensor(rng.integers(0, 2 ** kb, (1, 3072))
+                                 .astype(np.int32)).cuda(),
+                 torch.as_tensor(rng.integers(-300, 300, (1, 3072)) / 4.0
+                                 ).cuda(),
+                 torch.as_tensor(-np.abs(rng.standard_normal((1, 3072)))
+                                 ).to("cuda", dtype),
+                 torch.ones((1, 3072), dtype=torch.bool, device="cuda"),
+                 torch.ones((1, 3072), dtype=torch.int64, device="cuda"))
+        got = kernels.merge_segments(*keyed, 1e-12, key_bits=kb)
+        want = kernels.merge_segments_plain(*keyed, 1e-12)
+        exact = all(torch.equal(got[i], want[i]) for i in (0, 1, 2, 3, 5))
+        err2 = max_abs_err(got[4], want[4], torch)
+        rt = RTOL[str(dtype).split(".")[1]]
+        close = all(torch.allclose(a, b, rtol=rt, atol=rt) for a, b in k3) \
+            and torch.allclose(got[4], want[4], rtol=rt, atol=rt)
+        print(f"solver rmf kernels {dtype}: K3 max_abs_err {err:.3g}, K2 "
+              f"exact {exact}, gprob max_abs_err {err2:.3g} (rtol = atol = "
+              f"{rt})", flush=True)
+        check(close and exact, f"solver rmf kernels {dtype}: K3 {err}, K2 "
+              f"exact {exact} {err2}")
+        gs = {}
+        for path in ("host", "device"):
+            ins = tt.Solver(mode="RMF", Nx=5, Ny=3, J=e05_model(), beta=4,
+                            device="cuda", dtype=dtype)
+
+            def run(stages):
+                ins.search_low_energy_spectrum(
+                    excitations_encoding=1, M=1024, relative_P_cutoff=1e-12,
+                    Dmax=32, max_dEng=3.1, path=path, stage_times=stages)
+                ins.decode_low_energy_states(max_dEng=3.1, max_states=100)
+            seconds, counts, stages = timed(torch, run)
+            err = float(abs(tt.energy_RMF(e05_model(), ins.binary_states())
+                            - ins.energy).max())
+            n = int((ins.energy <= ins.energy[0] + 3.1).sum())
+            ins.search_ground_state(M=1024, relative_P_cutoff=1e-12,
+                                    Dmax=32, path=path)
+            gs[path] = float(ins.energy[0])
+            print(f"solver rmf e05 {dtype} {path}: {seconds:.3f} s  {n} "
+                  f"states within dE=3.1, recheck error {err:.3g}, GS "
+                  f"{gs[path]:.9f}  launches {counts}", flush=True)
+            check(n == 26 and err <= 1e-9, f"solver rmf e05 {dtype} {path}:"
+                  f" {n} states (want 26), recheck error {err}")
+            check(counts["marginal_epilogue"] > 0
+                  and (counts["merge"] > 0) == (path == "device"),
+                  f"solver rmf e05 {path}: launches {counts}")
+        check(abs(gs["host"] - gs["device"]) <= 1e-9,
+              f"solver rmf e05 {dtype}: GS {gs}")
+
+    # (g) save and load
+    with tempfile.TemporaryDirectory() as d:
+        for name, src, dE in (("gs 2048", ins_a, None),
+                              ("spectrum 128 ee=2", ins_e, 1.0)):
+            path = os.path.join(d, "result.npy")
+            src.save(path)
+            out = tt.load(path)
+            if dE is not None:
+                out.decode_low_energy_states(max_dEng=dE)
+            same = np.array_equal(out.binary_states(), src.binary_states()) \
+                and bool(np.abs(out.energy - src.energy).max() <= 1e-12)
+            print(f"solver save/load {name}: {len(out.energy)} states, the "
+                  f"same decoded states: {same}", flush=True)
+            check(same, f"solver save/load {name}: the loaded solver decodes "
+                  f"other states")
+    print(f"phase 7 (the Solver's own paths): "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return solver, solver_host
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "tnax_torch")):
         fail("no tnax_torch package beside chip_smoke.py")
@@ -1163,6 +1515,9 @@ def main():
     # phase 6: the low-energy spectrum through its entry points
     spectrum = spectrum_phase(tt, torch)
 
+    # phase 7: the Solver's own paths
+    solver, solver_host = solver_phase(tt, torch)
+
     # summary: kernel numbers in float32 at the fleet's shapes; launches
     # of the last f32 fleet batch of the path that runs the kernel (the
     # search for K1-K3, the sampler for K4), and of the last f32 single
@@ -1190,7 +1545,9 @@ def main():
                                else {}),
                             launches_single=single[name],
                             launches_sample_fleet=sample[name],
-                            launches_spectrum=spectrum[name]))
+                            launches_spectrum=spectrum[name],
+                            launches_solver=solver[name],
+                            launches_solver_host=solver_host[name]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"imports", flush=True)
     print(smi, flush=True)

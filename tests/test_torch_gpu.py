@@ -491,3 +491,105 @@ def test_records_dispatch_never_syncs(cuda, cand_factor):
     R = spectrum._row_records(rows[-1], layout, 0)
     assert int(R["out_valid"][-1].sum()) > 0
     assert bool((R["count"] > 0).all())
+
+
+def _rmf_site_args(rng, cuda, dtype, B, M=1024, D=32):
+    """K3's inputs at the widths of an RMF site of 3-state variables
+    (Np = 3, legs of 3): lB with one forbidden (state, leg) pair and a
+    variable with two states, int64 indices, the cutoff window."""
+    Np = lh = lv = 3
+    lB = -np.abs(rng.standard_normal((B, Np, lh, lv))) * 8
+    lB[:, 1, 2, :] = -np.inf
+    drindex = np.stack([rng.permutation(lh * lv)[:Np] for _ in range(B)])
+    AT = rng.standard_normal((B, D, lv, D))
+    RL = rng.standard_normal((B, M, D))
+    RRsel = np.abs(rng.standard_normal((B, M, D, lh)))
+    T2 = engine._marginal_T2(*(_t(x).to(cuda, dtype) for x in (AT, RL,
+                                                                RRsel)))
+    return (T2, kernels.marginal.boltzmann_columns(_t(lB).to(cuda, dtype)),
+            _t(drindex).to(cuda).long(),
+            _t(rng.integers(0, lh, size=(B, M))).to(cuda),
+            _t(rng.integers(0, lv, size=(B, M))).to(cuda),
+            torch.tensor([3, 2] * (B // 2) + [3] * (B % 2), device=cuda),
+            _t(-np.abs(rng.standard_normal((B, M))) * 10).to(cuda, dtype),
+            _t(rng.random((B, M)) < 0.8).to(cuda), float(np.log2(1e-12)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 8])
+def test_kernels_at_rmf_widths_match_plain(cuda, dtype, B):
+    """K3 and K2 at the RMF widths of e05 (Np = 3, lh = lv = 3, so 2 bits
+    per leg value): K3's outputs, and K2 on the full expansion's 3 M
+    candidates with the search's key_bits (log2 M + 2 * 2 + 1 = 15)."""
+    rng = np.random.default_rng(30 + B)
+    args = _rmf_site_args(rng, cuda, dtype, B)
+    got = kernels.marginal_epilogue(*args)
+    want = kernels.marginal_epilogue_plain(*args)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=_rtol(dtype), atol=_rtol(dtype))
+    kb = (1024 - 1).bit_length() + 2 * 2 + 1
+    keyed = _keyed_set(rng, B, 3 * 1024, kb, dtype, cuda)
+    got = kernels.merge_segments(*keyed, 1e-12, key_bits=kb)
+    want = kernels.merge_segments_plain(*keyed, 1e-12)
+    for i in (0, 1, 2, 3, 5):
+        assert torch.equal(got[i], want[i]), i
+    rtol = _gprob_rtol(want[1], dtype)
+    torch.testing.assert_close(got[4], want[4], rtol=rtol, atol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_host_search_reads_once_per_site(cuda, dtype):
+    """The host-exact search on chimera-128 (M = 256, cutoff 1e-8, so the
+    float32 fast path holds at every site) waits for the device once per
+    site, its one read, and launches K3 once per site, K2 never; under
+    CUDA sync debugging each wait warns once."""
+    import os
+    import warnings
+    import tnax_torch as tt
+    from tnax_torch import search
+    path = os.path.join(os.path.dirname(__file__), "data",
+                        "chimera128_synth_s0.txt")
+    J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(path)), 1 / 75)
+    ins = tt.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J, beta=3,
+                    device="cuda", dtype=dtype)
+    kw = dict(M=256, relative_P_cutoff=1e-8, Dmax=8)
+    ctx = ins._context()
+    search.search_ground_state(ctx, **kw)   # builds the boundary, warms up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = search.search_ground_state(ctx, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 16, [str(w.message) for w in syncs[:3]]
+    counts = kernels.launch_counts()
+    assert counts["marginal_epilogue"] == 16 and counts["merge"] == 0
+    ins.set_result(res)
+    np.testing.assert_allclose(tt.energy_Jij(J, ins.binary_states()),
+                               ins.energy, atol=1e-9)
+
+
+@pytest.mark.gpu
+def test_host_sampler_runs_k4_per_site(cuda):
+    """Gibbs sampling on the host path launches K4 once per site and no
+    plain marginal: the NumPy uniforms go to the device sampler."""
+    import os
+    import tnax_torch as tt
+    path = os.path.join(os.path.dirname(__file__), "data",
+                        "chimera128_synth_s0.txt")
+    J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(path)), 1 / 75)
+    ins = tt.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J, beta=3,
+                    device="cuda", dtype=torch.float64)
+    kernels.reset_launch_counts()
+    E = ins.gibbs_sampling(M=64, Dmax=16, seed=1)
+    assert kernels.launch_counts() == dict(gebal=0, merge=0,
+                                           marginal_epilogue=0,
+                                           sample_site=16)
+    np.testing.assert_allclose(tt.energy_Jij(J, ins.binary_states()), E,
+                               atol=1e-9)

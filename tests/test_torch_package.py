@@ -41,7 +41,7 @@ def test_no_jax_or_tnax_import(path):
 
 def test_scan_covers_the_spectrum_modules():
     names = {os.path.relpath(p, ROOT) for p in _sources()}
-    for m in ("search.py", "spectrum.py", "native/__init__.py"):
+    for m in ("search.py", "spectrum.py", "sample.py", "native/__init__.py"):
         assert os.path.join("tnax_torch", m) in names, m
 
 

@@ -139,8 +139,6 @@ def test_unported_paths_raise():
         ins.precondition(path="host")
     with pytest.raises(NotImplementedError):
         ins.precondition(directions=("ud", "lr"))
-    with pytest.raises(NotImplementedError):
-        ins.search_low_energy_spectrum(path="host")
 
 
 SMALL = dict(M=16, Dmax=4, pre_Dmax=4, cand_factor=2)

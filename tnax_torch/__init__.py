@@ -2,32 +2,35 @@
 
 tnax (JAX, beside this package) is the reference; this package imports
 torch, numpy and scipy, never jax or tnax. Module and function names
-follow tnax's so that each counterpart can be found. The slices ported
-so far are the flagship ground-state search, Gibbs sampling and the
-low-energy spectrum, each for one instance and for a fleet, which runs
-many same-shape instances through one batch axis::
+follow tnax's so that each counterpart can be found. The ``Solver`` takes
+tnax's arguments and methods: the ground-state search, Gibbs sampling and
+the low-energy spectrum, each on tnax's two paths (``path="host"``, the
+default, with exact host bookkeeping; ``path="device"``, all on the
+device), Ising and RMF problems, and ``save``/``load``::
 
-    import torch, tnax_torch as tt
+    import numpy as np, tnax_torch as tt
     J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(path)), 1 / 75)
     ins = tt.Solver(mode="Ising", Nx=16, Ny=16, Nc=8, J=J, beta=3)
-    res = tt.parallel.flagship_search_gs(ins, M=1024,
-                                         relative_P_cutoff=1e-8, Dmax=32)
-    solvers = [tt.Solver(mode="Ising", Nx=8, Ny=8, Nc=8, J=J_b, beta=3)
-               for J_b in Js]
-    rs = tt.parallel.multi_flagship_search_gs(
-        solvers, M=1024, relative_P_cutoff=1e-8, Dmax=32, cand_factor=2)
-    smp = tt.flagship_sample(ins, M=128, Dmax=48, pre_steps=2, seed=0)
-    smps = tt.multi_flagship_sample(solvers, M=128, Dmax=48, pre_steps=2)
-    # the low-energy spectrum: droplets recorded on the device, replayed
-    # and decoded on the host
-    import numpy as np
+    ins.precondition()
+    ins.search_ground_state(M=1024, relative_P_cutoff=1e-8, Dmax=32)
+    ins.energy, ins.degeneracy, ins.binary_states()
+    ins.gibbs_sampling(M=128, Dmax=48, seed=0)      # ins.energy, ins.states
     np.random.seed(7)
     ins.add_noise(1e-7)
-    ins.precondition()
     ins.search_low_energy_spectrum(excitations_encoding=2, M=1024,
                                    relative_P_cutoff=1e-8, Dmax=32,
-                                   max_dEng=1.0, cand_factor=64)
-    ins.decode_low_energy_states(max_dEng=1.0)   # ins.energy, ins.states
+                                   max_dEng=1.0, path="device",
+                                   cand_factor=64)
+    ins.decode_low_energy_states(max_dEng=1.0)
+    ins.save("result.npy")
+    same = tt.load("result.npy")
+
+Fleets of same-shape instances run through one batch axis: the context
+functions (``parallel.multi_search_gs``, ``parallel.multi_sample``,
+``multi_search_spectrum``) and the flagship pipelines (the balancing
+ladder, the boundary and the search or sampling pass in one call,
+``parallel.flagship_search_gs``, ``flagship_sample`` and their ``multi_``
+forms).
 
 Solvers run on CUDA in float32 unless given ``device`` and ``dtype``
 (``device="cpu"`` runs the plain versions in float64). Four device
@@ -39,16 +42,16 @@ store runs on the host, its hot loops in C (``tnax_torch.native``, built
 with the system C compiler at first use).
 """
 
-from . import config, parallel, search, spectrum
+from . import config, parallel, sample, search, spectrum
 from .parallel import flagship_sample, multi_flagship_sample
 from .spectrum import multi_search_spectrum
-from .problems import (Jij_f2p, energy_Jij, load_Jij, minus_Jij,
-                       round_Jij)
-from .solver import Solver
+from .problems import (Jij_f2p, energy_Jij, energy_RMF, load_Jij,
+                       minus_Jij, round_Jij)
+from .solver import Solver, load, tnac4o
 
-__all__ = ["Solver", "parallel", "config", "search", "spectrum",
-           "flagship_sample", "multi_flagship_sample",
+__all__ = ["Solver", "tnac4o", "load", "parallel", "config", "sample",
+           "search", "spectrum", "flagship_sample", "multi_flagship_sample",
            "multi_search_spectrum", "load_Jij", "round_Jij", "minus_Jij",
-           "Jij_f2p", "energy_Jij"]
+           "Jij_f2p", "energy_Jij", "energy_RMF"]
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"

@@ -35,6 +35,7 @@ _i64 = ctypes.c_int64
 # called once per droplet or per site.
 _SIGNATURES = {
     "tnax_hd_pair_ising": (_i64, [_i64p, _i64p, _i64, _i64p, _i64p, _i64]),
+    "tnax_hd_pair_rmf": (_i64, [_i64p, _i64p, _i64, _i64p, _i64p, _i64]),
     "tnax_merge_shapes": (_i64, [_i64p, _i64p, _i64, _i64p, _i64p, _i64,
                                  _i64p, _i64p]),
     "tnax_elementary": (ctypes.c_int, [_u64p, _i64, _i64p, _i64]),

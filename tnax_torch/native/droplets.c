@@ -46,6 +46,24 @@ int64_t tnax_hd_pair_ising(const int64_t *p1, const int64_t *s1, int64_t n1,
     return hd;
 }
 
+/* Hamming distance between two sorted droplet shapes, RMF semantics:
+ * the positions where the shapes differ (reference _exc_hd_comp,
+ * tnac4o/tnac4o.py:2178-2196). */
+int64_t tnax_hd_pair_rmf(const int64_t *p1, const int64_t *s1, int64_t n1,
+                         const int64_t *p2, const int64_t *s2, int64_t n2) {
+    int64_t i = 0, j = 0, hd = 0;
+    while (i < n1 && j < n2) {
+        if (p1[i] == p2[j]) {
+            if (s1[i] != s2[j]) hd++;
+            i++; j++;
+        } else if (p1[i] < p2[j]) { hd++; i++; }
+        else { hd++; j++; }
+    }
+    if (i < n1) hd += n1 - i;
+    else if (j < n2) hd += n2 - j;
+    return hd;
+}
+
 /* Sorted-merge XOR of two shapes (reference _exc_merge,
  * tnac4o/tnac4o.py:2198-2247). Output buffers must hold n1+n2 entries;
  * returns the merged length. */

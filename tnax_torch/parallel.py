@@ -1,8 +1,13 @@
-"""Device-resident beam search, Gibbs sampling, and the flagship
-pipelines around them, for one instance or a fleet.
+"""Device-resident beam search, Gibbs sampling, the functions that run them
+on contraction contexts, and the flagship pipelines around them, for one
+instance or a fleet.
 
-Counterpart of the single-device ``topk`` path and the fused samplers of
-``tnax/parallel.py``.
+Counterpart of the single-device ``topk`` path, the context functions
+(``device_search_gs``, ``multi_search_gs``, ``device_sample``,
+``multi_sample``, ``exact_energies``) and the fused samplers of
+``tnax/parallel.py``. They are the one search body and the one
+sampling body: the Solver's paths call them on its context, the flagship
+pipelines on the context their ladder and boundary stages made.
 tnax vmaps one program over a fleet of instances; here every function
 carries a written-out leading instance axis B, and the single search is
 the fleet of one. One beam step per lattice site and per instance, all
@@ -624,51 +629,59 @@ def _boundary_stages(solvers, f, clock, *, pre_steps, max_scale, Dmax, tolS,
     return ctx
 
 
-def multi_flagship_search_gs(solvers, M=2 ** 10, relative_P_cutoff=1e-6,
-                             min_dEng=1e-12, Dmax=32, tolS=1e-16, tolV=1e-10,
-                             max_sweeps=2, graduate_truncation=True,
-                             cand_factor=8, select="topk", pre_steps=1,
-                             pre_Dmax=8, pre_sweeps=20, max_scale=1024,
-                             zipup_rsvd=None, omega=None, stage_times=None):
-    """Fleet GS search: the flagship pipeline (balancing ladder, boundary
-    build, beam search) run once over a batch of same-shape Solver
-    instances, every stage with a leading instance axis (tnax's
-    ``multi_flagship_search_gs``, with its arguments). Each instance's
-    result is the one :func:`flagship_search_gs` gives it alone.
+def _one(ctx, name):
+    if ctx.B != 1:
+        raise ValueError(f"{name} takes a context of one instance, got "
+                         f"{ctx.B}")
 
-    The instances must share (Ny, Nx, Np, lh, lv), beta, device and dtype
-    (ValueError otherwise). ``cand_factor`` sizes each instance's merge
-    candidate set at ``cand_factor*M`` (None = the full M*Np expansion,
-    the uncapped exact merge; kernel K2 takes any cap). ``select`` is
-    "topk" or "sort" (the same selection); ``graduate_truncation`` has no
-    effect on the zip-up; ``zipup_rsvd`` is None or True (the sketch) or
-    False (the exact SVD). ``omega`` is the zip-up sketch, shared by the
-    fleet (see ``bmps.zipup_apply``): a callable ``(L, n, k) -> tensor``
-    or None for the seeded default. ``stage_times``, if a dict, receives
-    the seconds of the four stages of the whole batch.
+
+def multi_search_gs(ctxs, M=2 ** 10, relative_P_cutoff=1e-6, min_dEng=1e-12,
+                    Dmax=32, tolS=1e-16, tolV=1e-10, max_sweeps=20,
+                    graduate_truncation=True, mesh=None, cand_factor=8,
+                    select="topk", zipup_rsvd=None, omega=None,
+                    stage_times=None):
+    """Device-resident ground-state search of same-shape instances (tnax's
+    ``multi_search_gs``, with its arguments): the contexts ``ctxs`` are
+    stacked along the instance axis (``ContractionContext.stack``), and
+    every stage runs once for all of them; the beams never leave the
+    device until the end. The search body of the Solver's
+    ``path="device"`` and of the flagship pipelines.
+
+    The boundary stacks are built (``zipup_rsvd`` and ``omega`` set the
+    zip-up, see ``ContractionContext.build_boundary``) unless the stacked
+    context holds them at ``Dmax``. ``cand_factor`` sizes each instance's
+    merge candidate set at ``cand_factor*M`` (None = the full M*Np
+    expansion, the uncapped exact merge; kernel K2 takes any cap).
+    ``select`` is "topk" or "sort" (the same selection);
+    ``graduate_truncation`` has no effect on the zip-up; ``mesh`` (several
+    devices) is not ported: NotImplementedError unless None.
+    ``stage_times``, if a dict, receives the seconds of the boundary (when
+    built here) and of the search.
 
     Returns a list with one dict(energy, states, prob, degeneracy,
     negative_probability, negative_probability_core,
     discarded_probability, merge_overflow, count_max) per instance, as
     tnax does; ``energy`` is the beam's float64 energy.
     """
+    if mesh is not None:
+        raise NotImplementedError("a device mesh is not ported: the fleet "
+                                  "runs on one card")
+    ctx = ContractionContext.stack(list(ctxs))
     _check_select(select)
     check_rsvd(zipup_rsvd)
-    f = fleet_tables(solvers)
-    bits = max(1, int(np.ceil(np.log2(max(f["lh"], f["lv"])))))
+    clock = _StageClock(stage_times, ctx.device)
+    if ctx.rhoT is None or ctx.Dmax != Dmax:
+        ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
+                           rsvd=zipup_rsvd, omega=omega)
+        clock.lap("boundary")
+    bits = max(1, int(np.ceil(np.log2(max(ctx.lh, ctx.lv)))))
     log2_cutoff = float(np.log2(relative_P_cutoff)) \
         if relative_P_cutoff > 0 else NEG
     cand = None if cand_factor is None else int(cand_factor) * M
-    clock = _StageClock(stage_times, f["device"])
-    ctx = _boundary_stages(
-        solvers, f, clock, pre_steps=pre_steps, max_scale=max_scale,
-        Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
-        pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps, rsvd=zipup_rsvd,
-        omega=omega)
-    beam0 = _initial_beam(f["B"], M, Dmax, f["Nx"], f["Ny"], f["dtype"],
-                          f["device"])
+    beam0 = _initial_beam(ctx.B, M, ctx.Dmax, ctx.Nx, ctx.Ny, ctx.dtype,
+                          ctx.device)
     beam, aux = full_search_scan(beam0, search_inputs(ctx), ctx.rhoT, ctx.Wt,
-                                 M=M, Nx=f["Nx"], bits=bits,
+                                 M=M, Nx=ctx.Nx, bits=bits,
                                  min_dEng=min_dEng, log2_cutoff=log2_cutoff,
                                  cand=cand)
     clock.lap("search")
@@ -677,7 +690,7 @@ def multi_flagship_search_gs(solvers, M=2 ** 10, relative_P_cutoff=1e-6,
             for k in ("valid", "Eng", "prob", "deg", "states")}
     aux = {k: v.cpu().numpy() for k, v in aux.items()}
     results = []
-    for b in range(len(solvers)):
+    for b in range(ctx.B):
         valid = host["valid"][b]
         Eng = host["Eng"][b].astype(np.float64)
         best = int(np.argmin(np.where(valid, Eng, np.inf)))
@@ -691,6 +704,62 @@ def multi_flagship_search_gs(solvers, M=2 ** 10, relative_P_cutoff=1e-6,
             merge_overflow=int(aux["ovf"][b]),
             count_max=int(aux["cmax"][b])))
     return results
+
+
+def device_search_gs(ctx, M=2 ** 10, relative_P_cutoff=1e-6, min_dEng=1e-12,
+                     Dmax=32, tolS=1e-16, tolV=1e-10, max_sweeps=20,
+                     graduate_truncation=True, fused=True, cand_factor=8,
+                     select="topk", zipup_rsvd=None, omega=None,
+                     stage_times=None):
+    """Device-resident ground-state search of the one instance of ``ctx``
+    (tnax's ``device_search_gs``, with its arguments): the boundary stack
+    is built unless the context holds it at ``Dmax``, then the whole beam
+    search runs on the device. tnax's ``fused`` picks one of two forms of
+    the same search; both run the port's one form. Returns the dict of
+    :func:`multi_search_gs`, whose other arguments it shares."""
+    _one(ctx, "device_search_gs")
+    return multi_search_gs(
+        [ctx], M=M, relative_P_cutoff=relative_P_cutoff, min_dEng=min_dEng,
+        Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
+        graduate_truncation=graduate_truncation, cand_factor=cand_factor,
+        select=select, zipup_rsvd=zipup_rsvd, omega=omega,
+        stage_times=stage_times)[0]
+
+
+def multi_flagship_search_gs(solvers, M=2 ** 10, relative_P_cutoff=1e-6,
+                             min_dEng=1e-12, Dmax=32, tolS=1e-16, tolV=1e-10,
+                             max_sweeps=2, graduate_truncation=True,
+                             cand_factor=8, select="topk", pre_steps=1,
+                             pre_Dmax=8, pre_sweeps=20, max_scale=1024,
+                             zipup_rsvd=None, omega=None, stage_times=None):
+    """Fleet GS search: the flagship pipeline (balancing ladder, boundary
+    build, beam search) run once over a batch of same-shape Solver
+    instances, every stage with a leading instance axis (tnax's
+    ``multi_flagship_search_gs``, with its arguments). Each instance's
+    result is the one :func:`flagship_search_gs` gives it alone.
+
+    The instances must share (Ny, Nx, Np, lh, lv), beta, device and dtype
+    (ValueError otherwise). The ladder's gauges and the boundary stacks
+    (``zipup_rsvd`` and ``omega``, the zip-up sketch shared by the fleet,
+    see ``bmps.zipup_apply``) make one context of the fleet, which
+    :func:`multi_search_gs` searches with ``cand_factor`` and ``select``.
+    ``stage_times``, if a dict, receives the seconds of the four stages
+    (ladder, peps, boundary, search) of the whole batch. Returns
+    :func:`multi_search_gs`'s list.
+    """
+    _check_select(select)
+    check_rsvd(zipup_rsvd)
+    f = fleet_tables(solvers)
+    clock = _StageClock(stage_times, f["device"])
+    ctx = _boundary_stages(
+        solvers, f, clock, pre_steps=pre_steps, max_scale=max_scale,
+        Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
+        pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps, rsvd=zipup_rsvd,
+        omega=omega)
+    return multi_search_gs(
+        [ctx], M=M, relative_P_cutoff=relative_P_cutoff, min_dEng=min_dEng,
+        Dmax=Dmax, cand_factor=cand_factor, select=select,
+        stage_times=stage_times)
 
 
 def flagship_search_gs(ins, M=2 ** 10, relative_P_cutoff=1e-6,
@@ -777,39 +846,6 @@ def full_sample_scan(beam0, grid_in, rhoT, Wt, u, *, M, Nx):
     return beam, torch.stack(mqs, 1).amin(1)
 
 
-def _flagship_sample_body(solvers, f, u, *, M, Dmax, tolS, tolV,
-                          max_sweeps, pre_steps, pre_Dmax, pre_sweeps,
-                          max_scale, rsvd=None, omega=None,
-                          stage_times=None):
-    """The Gibbs sampling pipeline of B instances at once (tnax
-    parallel.py:1438-1467, vmapped there): the stages of
-    :func:`_boundary_stages`, then the M-walker sampling pass on the
-    uniforms u (B, Ny, Nx, M). ``stage_times``, if a dict, receives the
-    seconds of the four stages (ladder, peps, boundary, sample). Returns
-    (states (B, M, Ny*Nx), mq (B,))."""
-    clock = _StageClock(stage_times, f["device"])
-    ctx = _boundary_stages(
-        solvers, f, clock, pre_steps=pre_steps, max_scale=max_scale,
-        Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
-        pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps, rsvd=rsvd, omega=omega)
-    B, Ny, Nx = f["B"], f["Ny"], f["Nx"]
-    # the Boltzmann tables with the states last, made once per pass, as
-    # for the search: a walker's column is one contiguous run for K4
-    grid_in = dict(lBT=boltzmann_columns(ctx.lB), drindex=ctx.drindex,
-                   dmap=f["dmap"], rmap=f["rmap"], nvalid=f["nvalid"],
-                   cols=f["cols"])
-    dev = f["device"]
-    beam0 = dict(RL=_unit_rows(B, M, Dmax, ctx.rhoT),
-                 vind=torch.zeros((B, M, Nx + 1), dtype=torch.int32,
-                                  device=dev),
-                 states=torch.zeros((B, M, Nx * Ny), dtype=torch.int32,
-                                    device=dev))
-    beam, mq = full_sample_scan(beam0, grid_in, ctx.rhoT, ctx.Wt, u, M=M,
-                                Nx=Nx)
-    clock.lap("sample")
-    return beam["states"], mq
-
-
 def instance_uniforms(seed, b, shape, dtype, device):
     """The uniforms of instance b of a fleet sampled with ``seed``: one
     draw of ``shape`` in [0, 1) from a generator on ``device`` seeded from
@@ -819,6 +855,86 @@ def instance_uniforms(seed, b, shape, dtype, device):
     gen = torch.Generator(device=device)
     gen.manual_seed(int(state[0]) >> 1)
     return torch.rand(shape, generator=gen, dtype=dtype, device=device)
+
+
+def multi_sample(ctxs, M=2 ** 10, Dmax=32, tolS=1e-15, tolV=1e-10,
+                 max_sweeps=20, graduate_truncation=True, seed=0, omega=None,
+                 uniforms=None, stage_times=None):
+    """Device-resident Gibbs sampling of same-shape instances (tnax's
+    ``multi_sample``, with its arguments): the contexts ``ctxs`` are
+    stacked along the instance axis (``ContractionContext.stack``), the
+    boundary stacks are built unless the stacked context holds them at
+    ``Dmax`` (``omega``: the zip-up sketch), then one M-walker sampling
+    pass of every instance runs on the device (kernel K4 for each site
+    step). The sampling body of the Solver's two paths and of the
+    flagship pipelines.
+
+    Random numbers: with ``uniforms=None`` instance b of the stack draws
+    its (Ny, Nx, M) uniforms of the pass from its own generator on the
+    device, seeded from (seed, b) alone (:func:`instance_uniforms`; tnax
+    folds b into a jax key instead); ``uniforms`` (B, Ny, Nx, M) in [0, 1)
+    injects them, walker m at site (ny, nx) using ``uniforms[b, ny, nx,
+    m]``. ``stage_times``, if a dict, receives the seconds of the boundary
+    (when built here) and of the pass.
+
+    Returns a list with one dict(states (M, Ny*Nx) int32 block states,
+    energy (M,) exact float64 energies replayed on the host,
+    negative_probability) per instance, as tnax does.
+    """
+    ctx = ContractionContext.stack(list(ctxs))
+    B, Ny, Nx = ctx.B, ctx.Ny, ctx.Nx
+    dtype, dev = ctx.dtype, ctx.device
+    shape = (B, Ny, Nx, M)
+    if uniforms is None:
+        u = torch.stack([instance_uniforms(seed, b, shape[1:], dtype, dev)
+                         for b in range(B)])
+    else:
+        u = torch.as_tensor(uniforms, device=dev).to(dtype)
+        if tuple(u.shape) != shape:
+            raise ValueError(f"uniforms must have shape {shape} "
+                             f"(B, Ny, Nx, M), got {tuple(u.shape)}")
+    clock = _StageClock(stage_times, dev)
+    if ctx.rhoT is None or ctx.Dmax != Dmax:
+        ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
+                           omega=omega)
+        clock.lap("boundary")
+    f = ctx.tables
+    # the Boltzmann tables with the states last, made once per pass, as
+    # for the search: a walker's column is one contiguous run for K4
+    grid_in = dict(lBT=boltzmann_columns(ctx.lB), drindex=ctx.drindex,
+                   dmap=f["dmap"], rmap=f["rmap"], nvalid=f["nvalid"],
+                   cols=f["cols"])
+    beam0 = dict(RL=_unit_rows(B, M, ctx.Dmax, ctx.rhoT),
+                 vind=torch.zeros((B, M, Nx + 1), dtype=torch.int32,
+                                  device=dev),
+                 states=torch.zeros((B, M, Nx * Ny), dtype=torch.int32,
+                                    device=dev))
+    beam, mq = full_sample_scan(beam0, grid_in, ctx.rhoT, ctx.Wt, u, M=M,
+                                Nx=Nx)
+    clock.lap("sample")
+    states, mq = beam["states"].cpu().numpy(), mq.cpu().numpy()  # one pull
+    return [dict(states=states[b],
+                 energy=exact_energies_problem(p, states[b]),
+                 negative_probability=min(0.0, float(mq[b])))
+            for b, p in enumerate(ctx.problems)]
+
+
+def device_sample(ctx, M=2 ** 10, Dmax=32, tolS=1e-15, tolV=1e-10,
+                  max_sweeps=20, graduate_truncation=True, seed=0, omega=None,
+                  uniforms=None, stage_times=None):
+    """Device-resident Gibbs sampling of the one instance of ``ctx``
+    (tnax's ``device_sample``, with its arguments): :func:`multi_sample`
+    of the context, so ``seed`` gives the uniforms of instance 0 of a
+    fleet, and ``uniforms`` (Ny, Nx, M) injects them. Returns
+    dict(states, energy, negative_probability)."""
+    _one(ctx, "device_sample")
+    if uniforms is not None:
+        uniforms = torch.as_tensor(uniforms)[None]
+    return multi_sample([ctx], M=M, Dmax=Dmax, tolS=tolS, tolV=tolV,
+                        max_sweeps=max_sweeps,
+                        graduate_truncation=graduate_truncation, seed=seed,
+                        omega=omega, uniforms=uniforms,
+                        stage_times=stage_times)[0]
 
 
 def multi_flagship_sample(solvers, M=2 ** 10, Dmax=32, tolS=1e-15,
@@ -835,45 +951,27 @@ def multi_flagship_sample(solvers, M=2 ** 10, Dmax=32, tolS=1e-15,
     NotImplementedError unless None.
 
     The instances must share (Ny, Nx, Np, lh, lv), beta, device and dtype
-    (ValueError otherwise). Random numbers: with ``uniforms=None``
-    instance b draws its (Ny, Nx, M) uniforms of the pass at the start
-    from its own generator on the device, seeded from (seed, b) alone
-    (:func:`instance_uniforms`); ``uniforms`` (B, Ny, Nx, M) in [0, 1)
-    injects them instead, walker m at site (ny, nx) using
-    ``uniforms[b, ny, nx, m]``. ``omega`` is the zip-up sketch and
-    ``zipup_rsvd`` its switch (see :func:`multi_flagship_search_gs`).
+    (ValueError otherwise). The ladder's gauges and the boundary stacks
+    (``zipup_rsvd`` and ``omega``, see :func:`multi_flagship_search_gs`)
+    make one context of the fleet, which :func:`multi_sample` samples with
+    ``seed`` or the injected ``uniforms`` (B, Ny, Nx, M).
     ``stage_times``, if a dict, receives the seconds of the four stages
-    (ladder, peps, boundary, sample) of the whole batch.
-
-    Returns a list with one dict(states (M, Ny*Nx) int32 block states,
-    energy (M,) exact float64 energies replayed on the host,
-    negative_probability) per instance, as tnax does.
+    (ladder, peps, boundary, sample) of the whole batch. Returns
+    :func:`multi_sample`'s list.
     """
     if mesh is not None:
         raise NotImplementedError("sampling over a device mesh is not "
                                   "ported yet")
     check_rsvd(zipup_rsvd)
     f = fleet_tables(solvers)
-    dtype, dev = f["dtype"], f["device"]
-    shape = (f["B"], f["Ny"], f["Nx"], M)
-    if uniforms is None:
-        u = torch.stack([instance_uniforms(seed, b, shape[1:], dtype, dev)
-                         for b in range(f["B"])])
-    else:
-        u = torch.as_tensor(uniforms, device=dev).to(dtype)
-        if tuple(u.shape) != shape:
-            raise ValueError(f"uniforms must have shape {shape} "
-                             f"(B, Ny, Nx, M), got {tuple(u.shape)}")
-    states, mq = _flagship_sample_body(
-        solvers, f, u, M=M, Dmax=Dmax, tolS=tolS, tolV=tolV,
-        max_sweeps=max_sweeps, pre_steps=pre_steps, pre_Dmax=pre_Dmax,
-        pre_sweeps=pre_sweeps, max_scale=max_scale, rsvd=zipup_rsvd,
-        omega=omega, stage_times=stage_times)
-    states, mq = states.cpu().numpy(), mq.cpu().numpy()   # one pull
-    return [dict(states=states[b],
-                 energy=exact_energies_problem(ins.problem, states[b]),
-                 negative_probability=min(0.0, float(mq[b])))
-            for b, ins in enumerate(solvers)]
+    clock = _StageClock(stage_times, f["device"])
+    ctx = _boundary_stages(
+        solvers, f, clock, pre_steps=pre_steps, max_scale=max_scale,
+        Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
+        pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps, rsvd=zipup_rsvd,
+        omega=omega)
+    return multi_sample([ctx], M=M, Dmax=Dmax, seed=seed, uniforms=uniforms,
+                        stage_times=stage_times)
 
 
 def flagship_sample(ins, M=2 ** 10, Dmax=32, tolS=1e-15, tolV=1e-10,
@@ -896,6 +994,14 @@ def flagship_sample(ins, M=2 ** 10, Dmax=32, tolS=1e-15, tolV=1e-10,
         pre_steps=pre_steps, pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps,
         max_scale=max_scale, zipup_rsvd=zipup_rsvd, omega=omega,
         uniforms=uniforms, stage_times=stage_times)[0]
+
+
+def exact_energies(ctx, states):
+    """Exact float64 energies of the block-state configurations ``states``
+    (M, Ny*Nx) of the one instance of ``ctx``, in the current rotation's
+    snake order (tnax's ``exact_energies``)."""
+    _one(ctx, "exact_energies")
+    return exact_energies_problem(ctx.problems[0], states)
 
 
 def exact_energies_problem(problem, states):

@@ -1,4 +1,5 @@
-"""Ising problem frontend, a NumPy/SciPy copy of tnax's Ising half.
+"""Problem frontends, a NumPy/SciPy copy of tnax's: Ising (quasi-2D block
+lattices, e.g. chimera) and RMF (random Markov fields).
 
 Counterpart of ``tnax/problems.py``: host preprocessing that turns
 couplings into per-site *energy tables*, which the PEPS factory
@@ -6,7 +7,8 @@ couplings into per-site *energy tables*, which the PEPS factory
 It is copied rather than imported because importing ``tnax`` imports and
 configures jax, and the port runs where jax is absent.
 
-A lattice site (block of spins) is described by :class:`SiteTables`:
+A lattice site (block of spins, or one RMF variable) is described by
+:class:`SiteTables`:
 
     W[s, l, d, r, u] = exp(beta*(offsets - Es[s] - Esl[s, l] - Esu[s, u]))
                        * delta(d == dmap[s]) * delta(r == rmap[s])
@@ -17,8 +19,6 @@ Bit/spin conventions (as tnax, for golden parity):
     spin changes fastest").
   - a leg index is the integer formed by the bits of the boundary-spin
     subset (in ascending block-spin order), same 0/1 convention.
-
-RMF problems are not ported yet.
 """
 
 from __future__ import annotations
@@ -86,6 +86,21 @@ def energy_Jij(J, states):
     diag = JJ.diagonal()
     st = 2.0 * np.asarray(states, dtype=np.float64) - 1
     return np.einsum("sl,sl->s", st, Jup.dot(st.T).T) + st @ diag
+
+
+def energy_RMF(J, states):
+    """RMF cost of configurations given the factor dictionary ``J``."""
+    states = np.asarray(states)
+    eng = np.zeros(len(states))
+    for key, val in J["fac"].items():
+        if len(key) == 2:
+            ny, nx = key
+            eng += J["fun"][val][states[:, ny * J["Nx"] + nx]]
+        else:
+            ny1, nx1, ny2, nx2 = key
+            eng += J["fun"][val][states[:, ny1 * J["Nx"] + nx1],
+                                 states[:, ny2 * J["Nx"] + nx2]]
+    return eng
 
 
 # ---------------------------------------------------------------------------
@@ -351,3 +366,132 @@ class IsingProblem(Problem):
                 conf = 1 - block_bits(len(act))  # 1=up when bit==0
                 out[:, act] = conf[states[:ns, kk]]
         return out
+
+
+class RMFProblem(Problem):
+    """Random Markov Field on an Ny x Nx rectangular lattice.
+
+    ``J = {'fun': {...}, 'fac': {...}, 'N': array, 'Nx': int, 'Ny': int}``
+    (reference `tnac4o/tnac4o.py:109-115`).
+    """
+
+    mode = "RMF"
+
+    def __init__(self, Nx: int, Ny: int, J: dict):
+        self.Nx = Nx
+        self.Ny = Ny
+        self.J = {"fun": dict(J["fun"]), "fac": dict(J["fac"]),
+                  "N": np.array(J["N"]), "Nx": Nx, "Ny": Ny}
+        self._build()
+
+    @property
+    def N(self):
+        return self._N
+
+    def _build(self):
+        Ny, Nx = self.Ny, self.Nx
+        self._N = np.array(self.J["N"], dtype=int)
+        fac = self.J["fac"]
+        self.ll = np.ones((Ny, Nx), dtype=int)
+        self.lr = np.ones((Ny, Nx), dtype=int)
+        self.lu = np.ones((Ny, Nx), dtype=int)
+        self.ld = np.ones((Ny, Nx), dtype=int)
+        for ny in range(Ny):
+            for nx in range(Nx):
+                if ((ny, nx - 1, ny, nx) in fac) or \
+                        ((ny, nx, ny, nx - 1) in fac):
+                    self.ll[ny, nx] = self._N[ny, nx - 1]
+                if ((ny, nx, ny, nx + 1) in fac) or \
+                        ((ny, nx + 1, ny, nx) in fac):
+                    self.lr[ny, nx] = self._N[ny, nx + 1]
+                if ((ny - 1, nx, ny, nx) in fac) or \
+                        ((ny, nx, ny - 1, nx) in fac):
+                    self.lu[ny, nx] = self._N[ny - 1, nx]
+                if ((ny, nx, ny + 1, nx) in fac) or \
+                        ((ny + 1, nx, ny, nx) in fac):
+                    self.ld[ny, nx] = self._N[ny + 1, nx]
+        self._site_cache = {}
+        # the padded grid and energy rows (engine.pad_grid,
+        # search.padded_energy_rows) are cached on the problem
+        self._grid_cache = None
+        self._energy_rows_np = None
+
+    def _pair_table(self, keyA, keyB, shape):
+        """E(s_here, s_neighbour) with the reference's lookup order
+        (`tnac4o/tnac4o.py:1620-1635`)."""
+        fac, fun = self.J["fac"], self.J["fun"]
+        if keyA in fac:
+            return np.asarray(fun[fac[keyA]], dtype=float).T
+        if keyB in fac:
+            return np.asarray(fun[fac[keyB]], dtype=float)
+        return np.zeros(shape)
+
+    def site(self, ny: int, nx: int) -> SiteTables:
+        key = (ny, nx)
+        if key in self._site_cache:
+            return self._site_cache[key]
+        n = self._N[ny, nx]
+        fac, fun = self.J["fac"], self.J["fun"]
+        Es = np.asarray(fun[fac[(ny, nx)]], dtype=float).reshape(n) \
+            if (ny, nx) in fac else np.zeros(n)
+        nl, nd = self.ll[ny, nx], self.ld[ny, nx]
+        nr, nu = self.lr[ny, nx], self.lu[ny, nx]
+        Esl = self._pair_table((ny, nx - 1, ny, nx), (ny, nx, ny, nx - 1),
+                               (n, nl))
+        Esu = self._pair_table((ny - 1, nx, ny, nx), (ny, nx, ny - 1, nx),
+                               (n, nu))
+        s = np.arange(n, dtype=np.int64)
+        tab = SiteTables(n=n, Es=Es, Esl=Esl, Esu=Esu,
+                         dmap=s % nd, rmap=s % nr,
+                         nl=nl, nd=nd, nr=nr, nu=nu)
+        self._site_cache[key] = tab
+        return tab
+
+    def rotate(self):
+        """Rotate 90 degrees (reference `tnac4o/tnac4o.py:315-336`).
+
+        The reference uses the *opposite* ``order_i`` convention in RMF
+        mode (``order_i[ii] = jj``, reference `tnac4o/tnac4o.py:330-332`)
+        to Ising mode's (``order_i[jj] = ii``, `:310`); kept as it is, as
+        tnax keeps it.
+        """
+        Nx, Ny = self.Nx, self.Ny
+        fac_new = {}
+        order_i = np.arange(Nx * Ny)
+        N_new = np.zeros((Nx, Ny), dtype=int)
+        for key, val in self.J["fac"].items():
+            if len(key) == 2:
+                ny, nx = key
+                fac_new[(Nx - nx - 1, ny)] = val
+            else:
+                ny1, nx1, ny2, nx2 = key
+                fac_new[(Nx - nx1 - 1, ny1, Nx - nx2 - 1, ny2)] = val
+        for nx in range(Nx):
+            for ny in range(Ny):
+                N_new[Nx - nx - 1, ny] = self._N[ny, nx]
+                order_i[ny * Nx + nx] = (Nx - nx - 1) * Ny + ny
+        self.Nx, self.Ny = Ny, Nx
+        self.J["fac"] = fac_new
+        self.J["N"] = N_new
+        self._build()
+        return order_i
+
+    def add_noise(self, amplitude=1e-7, rng=None):
+        """Noise on 1-site factors (reference `tnac4o/tnac4o.py:935-941`).
+        ``rng=None`` uses the global legacy RNG, as the reference's
+        ``np.random.rand``, so ``np.random.seed(s)`` gives tnax's
+        factors."""
+        fun_new = {}
+        for key, val in self.J["fun"].items():
+            fun_new[key] = np.array(val, dtype=float)
+            if fun_new[key].ndim == 1:
+                n = fun_new[key].shape[0]
+                u = np.random.rand(n) if rng is None else rng.random(n)
+                fun_new[key] = fun_new[key] + (u * 2 - 1) * amplitude
+        self.J["fun"] = fun_new
+        self._site_cache = {}
+        self._grid_cache = None
+        self._energy_rows_np = None
+
+    def decode_states(self, states, ind0, L):
+        return states

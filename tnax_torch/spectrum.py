@@ -1,11 +1,14 @@
-"""Low-energy spectrum: the device decision records, their host replay and
-the droplet (excitation) store.
+"""Low-energy spectrum: the host-exact search, the device decision
+records and their host replay, and the droplet (excitation) store.
 
-Counterpart of the device-record path of ``tnax/spectrum.py``. Whenever
+Counterpart of ``tnax/spectrum.py``. Whenever
 two branches with the same boundary-index vector merge in the beam
 search, the losing branch differs from the winner by a localized cluster
 of flipped spins, a droplet; recording droplets hierarchically
-reconstructs the low-energy spectrum from one search. The device runs
+reconstructs the low-energy spectrum from one search. The host path
+(:func:`search_spectrum`) is the host-exact ground-state search's site
+loop (``search.HostSites``, kernel K3 on CUDA) with droplets recorded at
+every merge. The device path runs
 each lattice row as ``parallel.row_records_prog``, which makes every beam
 decision and records it; each row's records leave the device in one copy
 into pinned memory while the host replays earlier rows: exact float64
@@ -15,13 +18,14 @@ droplet independence, as the reference (`tnac4o/tnac4o.py:652-725`):
 layer.
 
 The droplet store is host code in tnax too, and is a NumPy copy of it
-(Ising only; tnax's module imports jax, so it cannot be imported here):
+(tnax's module imports jax, so it cannot be imported here):
 ``d`` (shape dictionary), ``invd`` (semi-hash inverse), ``el``
 (per-branch excitation trees), ``free_d`` (next free key), ``adj``
 (adjacency), ``xor2ind`` (cluster XOR -> flipped spin ids). Tree nodes are
 ``((dEng, key[, first, last, dP]), (children...))`` tuples, the reference's
 format. Its scalar hot loops run in C (``tnax_torch.native``) unless the
-caller passes ``native=False``, which selects their NumPy versions.
+caller passes ``native=False``, which selects their NumPy versions; an
+RMF lattice's droplets are sets of sites, tested on the grid in NumPy.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from . import native as _native
 from . import parallel as par
 from .parallel import NEG, _StageClock
 from .problems import block_bits
-from .search import ContractionContext, SearchResult
+from .search import (ContractionContext, HostSites, SearchResult,
+                     expand_candidates, merge_by_vind, top_m)
 
 logger = logging.getLogger("tnax_torch")
 
@@ -122,7 +127,12 @@ def exc_gc(ins):
 def reset_adjacency(ins, J, Nx, Ny, ind):
     """Adjacency matrix and cluster-XOR decode tables (reference
     `_reset_adj`, `tnac4o/tnac4o.py:2021-2041`), and their bitset forms
-    (:func:`adjacency_tables`)."""
+    (:func:`adjacency_tables`); for RMF only the lattice's width and
+    height."""
+    ins._shape_masks = {}
+    if ins.mode != "Ising":
+        ins.adj_Nx, ins.adj_Ny = Nx, Ny
+        return
     adj = (scipy.sparse.triu(J, 1) != 0)
     ins.adj = (adj + adj.T).toarray()
     ins.xor2ind = []
@@ -171,6 +181,15 @@ def adjacency_tables(ins):
                     int(max(lens) if lens else 0))
 
 
+def reset_adjacency_from_saved(ins, adj):
+    """Rebuild the adjacency helpers after ``load`` (reference `load`,
+    `tnac4o/tnac4o.py:60-72`)."""
+    if ins.mode == "Ising":
+        reset_adjacency(ins, adj, ins.Nx_model, ins.Ny_model, ins.ind0)
+    else:
+        ins.adj_Nx, ins.adj_Ny = ins.Nx_model, ins.Ny_model
+
+
 def _flipped_spins(ins, dpos, dstate):
     """Global ids of flipped spins (reference `_exc_xor2ind`)."""
     L = _lib(ins)
@@ -190,9 +209,10 @@ def _flipped_spins(ins, dpos, dstate):
 
 def _elem_batch(ins, dpos_flat, dstate_flat, bounds):
     """Connectivity flags of a whole site's losers in one native call
-    (:func:`exc_elementary` for each); None with the NumPy versions."""
+    (:func:`exc_elementary` for each); None with the NumPy versions and
+    for RMF."""
     L = _lib(ins)
-    if L is None:
+    if L is None or ins.mode != "Ising":
         return None
     starts, values, site_base, maxlen = ins._xor_csr
     n = len(bounds) - 1
@@ -212,8 +232,19 @@ def _elem_batch(ins, dpos_flat, dstate_flat, bounds):
 
 
 def exc_elementary(ins, dpos, dstate):
-    """Is the droplet single-connected? (reference `_exc_elementary`): a
-    breadth-first search on the adjacency bitsets."""
+    """Is the droplet single-connected? (reference `_exc_elementary`,
+    `tnac4o/tnac4o.py:2087-2114`): Ising as a breadth-first search on the
+    adjacency bitsets, RMF on the lattice's nearest neighbours."""
+    if ins.mode != "Ising":
+        grp, rest = dpos[:1], dpos[1:]
+        while grp.size and rest.size:
+            gx, gy = grp % ins.adj_Nx, grp // ins.adj_Nx
+            rx, ry = rest % ins.adj_Nx, rest // ins.adj_Nx
+            dist = np.abs(gx[:, None] - rx[None, :]) + \
+                np.abs(gy[:, None] - ry[None, :])
+            hit = np.any(dist == 1, axis=0)
+            grp, rest = rest[hit], rest[~hit]
+        return rest.size == 0
     spins = _flipped_spins(ins, dpos, dstate)
     if spins.size <= 1:
         return True
@@ -258,28 +289,55 @@ def _shape_masks(ins, e):
 
 
 def exc_overlap(ins, e1, e2):
-    """Do two droplets interact? (reference `_exc_overlap`):
-    ``neighbourhood(e1) & spins(e2)`` on the cached bitsets."""
-    return (_shape_masks(ins, e1)[1] & _shape_masks(ins, e2)[0]) != 0
+    """Do two droplets interact? (reference `_exc_overlap`,
+    `tnac4o/tnac4o.py:2116-2141`): Ising as ``neighbourhood(e1) &
+    spins(e2)`` on the cached bitsets, RMF as two sites at most one step
+    apart."""
+    if ins.mode == "Ising":
+        return (_shape_masks(ins, e1)[1] & _shape_masks(ins, e2)[0]) != 0
+    p1, p2 = _shape_of(ins, e1)[0], _shape_of(ins, e2)[0]
+    x1, y1 = p1 % ins.adj_Nx, p1 // ins.adj_Nx
+    x2, y2 = p2 % ins.adj_Nx, p2 // ins.adj_Nx
+    dist = np.abs(x1[:, None] - x2[None, :]) \
+        + np.abs(y1[:, None] - y2[None, :])
+    return bool(np.any(dist <= 1))
 
 
 def exc_hd(ins, dstate):
-    """Droplet size used by lim_hd (reference `_exc_hd`)."""
-    return len(dstate)
+    """Droplet size used by lim_hd (reference `_exc_hd`): Ising its
+    number of flipped blocks, RMF the set bits of its XORs."""
+    if ins.mode == "Ising":
+        return len(dstate)
+    return int(sum(bin(int(s)).count("1") for s in dstate))
 
 
 def exc_hd_pair(ins, e1, e2):
     """Hamming distance between two droplets (reference `_exc_hd_comp`)."""
     (p1, s1), (p2, s2) = _shape_of(ins, e1), _shape_of(ins, e2)
+    ising = ins.mode == "Ising"
     L = _lib(ins)
     if L is not None:
-        return int(L.tnax_hd_pair_ising(
-            np.ascontiguousarray(p1, np.int64),
-            np.ascontiguousarray(s1, np.int64), len(p1),
-            np.ascontiguousarray(p2, np.int64),
-            np.ascontiguousarray(s2, np.int64), len(p2)))
+        f = L.tnax_hd_pair_ising if ising else L.tnax_hd_pair_rmf
+        return int(f(np.ascontiguousarray(p1, np.int64),
+                     np.ascontiguousarray(s1, np.int64), len(p1),
+                     np.ascontiguousarray(p2, np.int64),
+                     np.ascontiguousarray(s2, np.int64), len(p2)))
     l1, l2 = len(p1), len(p2)
     n1 = n2 = hd = 0
+    if not ising:
+        # RMF: the positions at which the shapes differ
+        while n1 < l1 and n2 < l2:
+            if p1[n1] == p2[n2]:
+                hd += int(s1[n1] != s2[n2])
+                n1 += 1
+                n2 += 1
+            elif p1[n1] < p2[n2]:
+                n1 += 1
+                hd += 1
+            else:
+                n2 += 1
+                hd += 1
+        return hd + (l1 - n1) + (l2 - n2)
     while n1 < l1 and n2 < l2:
         if p1[n1] == p2[n2]:
             hd += bin(int(s1[n1]) ^ int(s2[n2])).count("1")
@@ -370,11 +428,41 @@ def unpack_v1(ins, el, max_dEng=0.0, max_states=np.inf):
 
 
 def unpack_v2(ins, excs, max_dEng=0.0, max_states=np.inf, one_layer=False):
-    """Graph-independence unpack (reference `_exc_unpack_v2`): in C, or
-    with ``native=False`` the same traversal in Python on cached masks."""
-    if _lib(ins) is not None:
-        return _unpack_v2_native(ins, excs, max_dEng, max_states, one_layer)
-    return _unpack_v2_ising(ins, excs, max_dEng, max_states, one_layer)
+    """Graph-independence unpack (reference `_exc_unpack_v2`,
+    `tnac4o/tnac4o.py:2337-2377`): for Ising in C, or with
+    ``native=False`` the same traversal in Python on cached masks; for
+    RMF the reference's traversal with :func:`exc_overlap`."""
+    if ins.mode == "Ising":
+        if _lib(ins) is not None:
+            return _unpack_v2_native(ins, excs, max_dEng, max_states,
+                                     one_layer)
+        return _unpack_v2_ising(ins, excs, max_dEng, max_states, one_layer)
+    Eng = [0.0]
+    pending = [list(excs)]
+    flip = [[]]
+    progressed = True
+    while progressed:
+        progressed = False
+        kk = 0
+        while kk < len(Eng):
+            if pending[kk]:
+                exc = pending[kk].pop()
+                if Eng[kk] + exc[0][0] <= max_dEng:
+                    Eng.append(Eng[kk] + exc[0][0])
+                    flip.append(flip[kk] + [exc[0][1]])
+                    rest = [x for x in pending[kk]
+                            if not exc_overlap(ins, x[0][1], exc[0][1])]
+                    pending.append(rest)
+                    if not one_layer:
+                        rest.extend(list(exc[1]))
+                    progressed = True
+            kk += 1
+        if len(Eng) > max_states:
+            keep = np.array(Eng).argpartition(max_states)[:max_states]
+            Eng = [Eng[i] for i in keep]
+            flip = [flip[i] for i in keep]
+            pending = [pending[i] for i in keep]
+    return np.array(Eng), flip
 
 
 def _unpack_v2_native(ins, excs, max_dEng, max_states, one_layer):
@@ -514,6 +602,42 @@ def excitations_to_list(el):
     return [[exc[0], excitations_to_list(exc[1])] for exc in el]
 
 
+def exc_export_shapes(ins, el=None, ind=-1, d=None):
+    """RMF droplet shapes as {index: [dEng, [[x, y], ...]]} (reference
+    `_exc_export_shapes`, `tnac4o/tnac4o.py:2390-2404`)."""
+    if ins.mode != "RMF":
+        raise ValueError("exc_export_shapes is defined for RMF mode")
+    el = ins.el if el is None else el
+    d = {} if d is None else d
+    for exc in el:
+        ind += 1
+        dpos = ins.d[exc[0][1]][0]
+        nx = np.mod(dpos, ins.adj_Nx)
+        ny = dpos // ins.adj_Nx
+        d[ind] = [exc[0][0], [[int(x), int(y)] for x, y in zip(nx, ny)]]
+        if exc[1]:
+            d = exc_export_shapes(ins, exc[1], ind, d)
+    return d
+
+
+def exc_show_properties(ins):
+    """Reference `_exc_show_properties` (`tnac4o/tnac4o.py:2043-2049`)."""
+    print("Excitation encoding  :", ins.excitations_encoding)
+    print("Size of dictionary   :", len(ins.d))
+    print("Exc in first layer   :", len(ins.el))
+
+
+def exc_print(ins, el=None, layer=1):
+    """Display the excitation tree (reference `exc_print`,
+    `tnac4o/tnac4o.py:2406-2423`)."""
+    el = ins.el if el is None else el
+    for exc in el:
+        dpos, dstate = ins.d[exc[0][1]]
+        print((3 * layer - 3) * " " + "|- %0.4f " % exc[0][0] + " : "
+              + " ".join(map(str, dpos)) + " | " + " ".join(map(str, dstate)))
+        exc_print(ins, exc[1], layer + 1)
+
+
 # ---------------------------------------------------------------------------
 # droplet recording at a merge
 # ---------------------------------------------------------------------------
@@ -554,20 +678,26 @@ def record_losers(ins, ee, bel, losers, ny, nx, Nx, max_dEng, lim_hd):
                 continue
             di = exc_register(ins, dpos, dstate)
             lim = max_dEng - cdE
-            # exc_overlap inlined, the new droplet's neighbourhood mask
-            # hoisted out of the walk over the parent's tree
-            nm = _shape_masks(ins, di)[1]
-            masks = ins._shape_masks
-            sel = []
-            for sne in pel:
-                h0 = sne[0]
-                if h0[0] > lim:
-                    continue
-                m2 = masks.get(h0[1])
-                if m2 is None:
-                    m2 = _shape_masks(ins, h0[1])
-                if nm & m2[0]:
-                    sel.append(exc_prune_energy(sne, lim - h0[0]))
+            if ins.mode == "Ising":
+                # exc_overlap inlined, the new droplet's neighbourhood
+                # mask hoisted out of the walk over the parent's tree
+                nm = _shape_masks(ins, di)[1]
+                masks = ins._shape_masks
+                sel = []
+                for sne in pel:
+                    h0 = sne[0]
+                    if h0[0] > lim:
+                        continue
+                    m2 = masks.get(h0[1])
+                    if m2 is None:
+                        m2 = _shape_masks(ins, h0[1])
+                    if nm & m2[0]:
+                        sel.append(exc_prune_energy(sne, lim - h0[0]))
+            else:
+                sel = [exc_prune_energy(sne, lim - sne[0][0])
+                       for sne in pel
+                       if sne[0][0] <= lim
+                       and exc_overlap(ins, di, sne[0][1])]
             bel.append(((cdE, di), tuple(sel)))
         else:  # ee == 3: flatten the hierarchy to one layer
             nsel = [sne for sne in pel
@@ -609,7 +739,136 @@ def _finalize_spectrum(ins, ee, lim_hd):
         srt = dpos.argsort()
         ins.d[key] = (dpos[srt], dstate[srt])
     if ee > 1:
-        reset_adjacency(ins, ins.J0, ins.Nx_model, ins.Ny_model, ins.ind0)
+        ising = ins.mode == "Ising"
+        reset_adjacency(ins, ins.J0 if ising else None, ins.Nx_model,
+                        ins.Ny_model, ins.ind0 if ising else None)
+
+
+def _reset_problem_adjacency(ins, Nx, Ny):
+    """The adjacency of the solver's current (rotated, noisy) problem, as
+    the searches record droplets in it."""
+    ising = ins.mode == "Ising"
+    reset_adjacency(ins, ins.problem.J if ising else None, Nx, Ny,
+                    ins.problem.ind if ising else None)
+
+
+# ---------------------------------------------------------------------------
+# the host-exact spectrum search
+# ---------------------------------------------------------------------------
+
+def search_spectrum(ins, ctx, excitations_encoding, M=2 ** 10,
+                    relative_P_cutoff=1e-6, max_dEng=0.0, lim_hd=0,
+                    min_dEng=1e-12, Dmax=32, tolS=1e-16, tolV=1e-10,
+                    max_sweeps=20, graduate_truncation=True, zipup_rsvd=None,
+                    omega=None, native=True,
+                    stage_times=None) -> SearchResult:
+    """Beam search with droplet recording at merges, the host-exact path
+    (tnax's ``search_spectrum``; reference
+    `_search_low_energy_spectrum_v{1,2,3}`, `tnac4o/tnac4o.py:727-1358`):
+    the site loop of ``search.search_ground_state`` (one read of the
+    device per site), every candidate of every merge in float64, and the
+    losers of each kept group recorded as droplets. One loop serves the
+    three encodings; only the recording differs. ``zipup_rsvd`` and
+    ``omega`` set the boundary's zip-up, ``native`` the droplet store's C
+    code (else its NumPy versions); ``stage_times``, if a dict, receives
+    the seconds of the boundary and of the search. Returns a
+    ``search.SearchResult``.
+    """
+    ee = excitations_encoding
+    clock = _StageClock(stage_times, ctx.device)
+    ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
+                       rsvd=zipup_rsvd, omega=omega)
+    clock.lap("boundary")
+
+    Ny, Nx = ctx.Ny, ctx.Nx
+    vind = np.zeros((1, Nx + 1), dtype=np.int32)
+    states = np.zeros((1, Nx * Ny), dtype=np.int32)
+    Eng = np.zeros(1)
+    prob = np.zeros(1)
+    deg = np.ones(1, dtype=np.int64)
+    pd_max, globalmin, globalmin_core = -np.inf, 1.0, 0.0
+    ins.droplet_native = native
+    exc_init(ins)
+    if ee > 1:
+        _reset_problem_adjacency(ins, Nx, Ny)
+
+    sites = HostSites(ctx, M, relative_P_cutoff)
+    for ny in range(Ny):
+        t_row = time.time()
+        K = len(prob)
+        RL = sites.start_row(ny, vind)
+        aidx = np.arange(K, dtype=np.int32)
+
+        for nx in range(Nx):
+            n = int(ctx.nstates[0, ny, nx])
+            inds, indc, probf, pd_max, minP, minP_core = expand_candidates(
+                *sites.marginals(nx, RL, aidx, vind, prob), prob, K, n,
+                ctx.Np, M, relative_P_cutoff, pd_max)
+            globalmin = min(globalmin, minP)
+            globalmin_core = min(globalmin_core, minP_core)
+            states = states[inds]
+            states[:, ny * Nx + nx] = indc
+            vind = vind[inds]
+            deg = deg[inds]
+            aidx = aidx[inds]
+            Eng = Eng[inds]
+            Es, Esl, Esu = ctx.energy_tables(ny, nx)
+            Eng = Eng + Es[indc] + Esl[indc, vind[:, nx]] \
+                + Esu[indc, vind[:, nx + 1]]
+            vind[:, nx] = ctx.dmap[0, ny, nx][indc]
+            vind[:, nx + 1] = ctx.rmap[0, ny, nx][indc]
+
+            vindn, rep, degn, probn, gorder, starts, g = merge_by_vind(
+                vind, Eng, probf, deg, min_dEng)
+            ends = np.r_[starts[1:], len(g)]
+            keep, pd_max = top_m(probn, M, pd_max)
+
+            # droplet recording: the losers of each kept merge group
+            new_el = []
+            for kk in keep:
+                members = gorder[starts[kk]:ends[kk]]
+                rep_kk = rep[kk]
+                E_kk = Eng[rep_kk]
+                bel = ins.el[inds[rep_kk]][:]
+
+                def _loser(ii):
+                    dfull = np.bitwise_xor(states[rep_kk], states[ii])
+                    dpos = np.flatnonzero(dfull).astype(np.int64)
+                    return (Eng[ii] - E_kk, dpos,
+                            dfull[dpos].astype(np.int64),
+                            probf[ii] - probn[kk], ins.el[inds[ii]])
+                losers = (_loser(ii) for ii in members if ii != rep_kk)
+                record_losers(ins, ee, bel, losers, ny, nx, Nx, max_dEng,
+                              lim_hd)
+                new_el.append(bel)
+
+            vind = vindn[keep]
+            prob = probn[keep]
+            deg = degn[keep]
+            rk = rep[keep]
+            states = states[rk]
+            Eng = Eng[rk]
+            parent = inds[rk].astype(np.int32)
+            aidx = aidx[rk]
+            ins.el = new_el
+            K = len(prob)
+            RL = sites.rl_update(nx, RL, parent, vind[:, nx])
+            if ee < 3:
+                exc_gc(ins)
+        if ee == 3:
+            exc_gc(ins)
+        logger.info("Row %d/%d: %d branches, %d shapes, %.2f s", ny + 1, Ny,
+                    K, len(ins.d), time.time() - t_row)
+        vind[:, 1:] = vind[:, :-1]
+        vind[:, 0] = 0
+    clock.lap("search")
+
+    _finalize_spectrum(ins, ee, lim_hd)
+    return SearchResult(
+        energy=Eng, probability=prob, degeneracy=int(deg[0]), states=states,
+        discarded_probability=float(pd_max),
+        negative_probability=min(globalmin, 0.0),
+        negative_probability_core=min(globalmin_core, 0.0))
 
 
 # ---------------------------------------------------------------------------
@@ -691,7 +950,7 @@ def _replay_records(ins, ctx, layout, rows, ee, *, b, M, C, P, max_dEng,
     exc_init(ins)
     ins.el = [[] for _ in range(M)]
     if ee > 1:
-        reset_adjacency(ins, ins.problem.J, Nx, Ny, ins.problem.ind)
+        _reset_problem_adjacency(ins, Nx, Ny)
     L = Nx * Ny
     Eng_h = np.zeros(M)
     states_h = np.zeros((M, L), dtype=np.int32)
@@ -877,9 +1136,7 @@ def multi_search_spectrum(inss, ctxs, excitations_encoding, M=2 ** 10,
     if not inss or len(inss) != len(ctxs):
         raise ValueError("need parallel, non-empty lists of solvers and "
                          "contexts")
-    ctx = ContractionContext(
-        list(inss), gauges={k: torch.cat([c.gauges[k] for c in ctxs])
-                            for k in ("Xl", "Xr", "Xu", "Xd")})
+    ctx = ContractionContext.stack(list(ctxs))
     for ins in inss:
         ins.excitations_encoding = excitations_encoding
     return _search(inss, ctx, excitations_encoding, M=M,

@@ -80,7 +80,7 @@ def main():
         ins.precondition(stage_times=stages)
         ins.search_low_energy_spectrum(
             excitations_encoding=2, M=1024, relative_P_cutoff=1e-8, Dmax=32,
-            max_dEng=1.0, cand_factor=64, stage_times=stages)
+            max_dEng=1.0, path="device", cand_factor=64, stage_times=stages)
         t0 = time.perf_counter()
         ins.decode_low_energy_states(max_dEng=1.0)
         stages["decode"] = time.perf_counter() - t0
