@@ -73,7 +73,18 @@ Run from the root of a checkout on a machine with one CUDA card. It
      energy is checked against ``energy_Jij`` of its state (1e-9), K2 and
      K3 against one launch per site and pass; stage times (ladder,
      boundary, records on the device, replay and decode on the host) and
-     the final cap are printed.
+     the final cap are printed;
+  7. drives the Solver's own paths through its methods (precondition,
+     both search, sampling and spectrum paths, RMF, save/load; see
+     ``solver_phase``);
+  8. drives the host preconditioner and the MPS API (``host_pre_phase``):
+     precondition(path="host") at chimera-2048 then the device search,
+     gated on the oracle; 'ud' + 'lr' there, the gauge invariants exactly
+     and both searches against their rechecks; at chimera-512 s1 in
+     float64 the host 'ud' against the device ladder (K1) at tnax's
+     tolerances and 'ud' + 'lr' + the host search against the oracle;
+     the boundary stacks (rhoT/B/L/R, the fat rhoT) and the MPS API on
+     the card against the CPU.
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before that line is printed. Without a CUDA card it fails.
@@ -1446,6 +1457,275 @@ def solver_phase(tt, torch):
     return solver, solver_host
 
 
+def rel_close(a, b, rtol):
+    """Norm-wise relative agreement of two tensors (any devices):
+    max |a - b| <= rtol * max |b|; returns (ok, that ratio)."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    err = float((a - b).abs().max()) if b.numel() else 0.0
+    ratio = err / scale if scale > 0 else err
+    return ratio <= rtol, ratio
+
+
+def log2z_interfaces(tt, first, ln_first, second, ln_second):
+    """log2 of the contraction at every interface k of two boundary
+    stacks (B = 1) that meet there: log2 |<first[k]|second[k]>| plus both
+    lognorms."""
+    z = tt.bmps.mps_dot(first[0], second[0])
+    return z.abs().log2() + ln_first[0] + ln_second[0]
+
+
+def host_pre_phase(tt, torch):
+    """Phase 8: the host preconditioner and the MPS API.
+    (a) chimera-2048 f32: precondition(path="host") (two rungs of 'ud'
+    sweeps on the host) then the device search, gated on the oracle;
+    (b) the same instance, 'ud' then 'lr' on the host: the gauge
+    invariants exactly, then the host and the device searches, each
+    energy against its recheck; (c) chimera-512 s1 f64: the host 'ud'
+    against the device ladder (K1) at tnax's tolerances, then 'ud' + 'lr'
+    and the host search against the GS oracle; (d) build_rhoB/L/R (and T)
+    at chimera-512 f64 D=8, the fat build_rhoT at chimera-128 f64 D=16,
+    on the card against the CPU through log2 Z at every row and column
+    interface; (e) the MPS API on a chimera-2048 row (L=16, D=32, d=16),
+    float64 and complex128, the card against the CPU. Returns the launch
+    counts of the Solver runs, summed apart: those of the chimera-2048
+    host path ((a) and (b)) and those of chimera-512 ((c): the device
+    ladder it is held against, the only K1, and the host run)."""
+    import numpy as np
+    t_phase = time.perf_counter()
+    total = {2048: {}, 512: {}}
+
+    def add(counts, size):
+        for k, v in counts.items():
+            total[size][k] = total[size].get(k, 0) + v
+
+    J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(INSTANCE)), 1 / 75)
+    with open(ORACLE) as f:
+        orc = json.load(f)
+    gs_kw = dict(M=1024, relative_P_cutoff=1e-8, Dmax=32)
+
+    def solver2048():
+        return tt.Solver(mode="Ising", Nx=16, Ny=16, Nc=8, J=J, beta=3,
+                         device="cuda", dtype=torch.float32)
+
+    # (a) host 'ud' at chimera-2048, then the device search
+    ins = solver2048()
+
+    def run_a(stages):
+        ins.precondition(path="host", stage_times=stages)
+        ins.search_ground_state(path="device", stage_times=stages, **gs_kw)
+    seconds, counts, stages = timed(torch, run_a)
+    add(counts, 2048)
+    E = gs_recheck(tt, J, ins, "host pre 2048 ud device")
+    print(f"host pre 2048 ud + device search f32: {seconds:.3f} s  stages "
+          f"{fmt(stages)}  energy {E:.6f} (f64 oracle {orc['energy']})  deg "
+          f"{ins.degeneracy} (oracle {orc['degeneracy']})  launches "
+          f"{counts}", flush=True)
+    check(abs(E - orc["energy"]) <= 1e-6
+          and ins.degeneracy == orc["degeneracy"],
+          f"host pre 2048 ud: energy {E} deg {ins.degeneracy}, want the "
+          f"oracle's {orc['energy']} deg {orc['degeneracy']}")
+    check(counts == dict(gebal=0, merge=256, marginal_epilogue=256,
+                         sample_site=0),
+          f"host pre 2048 ud: launches {counts}, want no K1 (host sweeps) "
+          f"and K2/K3 once per site")
+
+    # (b) 'ud' then 'lr' on the host, then both searches
+    ins = solver2048()
+    seconds, counts, stages = timed(torch, lambda st: ins.precondition(
+        path="host", directions=("ud", "lr"), stage_times=st))
+    add(counts, 2048)
+    X = ins._gauges
+    inv_ud = bool((X["Xd"][:, :-1] * X["Xu"][:, 1:] == 1).all())
+    inv_lr = bool((X["Xr"][:, :, :-1] * X["Xl"][:, :, 1:] == 1).all())
+    print(f"host pre 2048 ud+lr f32: {seconds:.3f} s  stages {fmt(stages)}"
+          f"  invariants Xd*Xu == 1: {inv_ud}, Xr*Xl == 1: {inv_lr}  "
+          f"launches {counts}", flush=True)
+    check(inv_ud and inv_lr and counts["gebal"] == 0,
+          f"host pre 2048 ud+lr: invariants {inv_ud} {inv_lr}, launches "
+          f"{counts}")
+    for path in ("host", "device"):
+        seconds, counts, stages = timed(torch, lambda st: (
+            ins.search_ground_state(path=path, stage_times=st, **gs_kw)))
+        add(counts, 2048)
+        E = gs_recheck(tt, J, ins, f"host pre 2048 ud+lr {path} search")
+        at = abs(E - orc["energy"]) <= 1e-6 \
+            and ins.degeneracy == orc["degeneracy"]
+        print(f"host pre 2048 ud+lr, {path} search f32: {seconds:.3f} s  "
+              f"stages {fmt(stages)}  energy {E:.6f} deg {ins.degeneracy}: "
+              f"reaches the oracle ({orc['energy']}, deg "
+              f"{orc['degeneracy']}): {at}  launches {counts}", flush=True)
+        check(counts["marginal_epilogue"] == 256
+              and counts["merge"] == (256 if path == "device" else 0),
+              f"host pre 2048 ud+lr {path}: launches {counts}")
+
+    # (c) chimera-512 s1 in f64: host 'ud' against the device ladder
+    base = FLEET[0]
+    J1 = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(base + ".txt")), 1 / 75)
+    with open(base + "_oracle.json") as f:
+        orc1 = json.load(f)
+
+    def solver512():
+        return tt.Solver(mode="Ising", Nx=8, Ny=8, Nc=8, J=J1, beta=3,
+                         device="cuda", dtype=torch.float64)
+    pair = {}
+    for path in ("host", "device"):
+        s = solver512()
+        seconds, counts, stages = timed(torch, lambda st: s.precondition(
+            path=path, stage_times=st))
+        add(counts, 512)
+        pair[path] = s
+        print(f"host pre 512 s1 f64 {path} ud: {seconds:.3f} s  stages "
+              f"{fmt(stages)}  launches {counts}", flush=True)
+        check(counts["gebal"] == (2 * 2 * 8 if path == "device" else 0),
+              f"host pre 512 {path}: K1 launches {counts['gebal']}")
+    h, d = pair["host"], pair["device"]
+    gerr = max(float(((h._gauges[k] - d._gauges[k]).abs()
+                      / d._gauges[k].abs()).max()) for k in h._gauges)
+    oerr = float(np.max(np.abs(h.overlaps_ud - d.overlaps_ud)
+                        - 1e-6 * np.abs(d.overlaps_ud)))
+    print(f"host pre 512 s1 f64: host 'ud' against the device ladder: "
+          f"gauges max relative difference {gerr:.3g} (rtol 1e-9), "
+          f"overlaps_ud max |diff| - 1e-6 |device| {oerr:.3g} (atol 1e-9)",
+          flush=True)
+    check(gerr <= 1e-9 and oerr <= 1e-9,
+          f"host pre 512: host and device 'ud' differ: gauges {gerr}, "
+          f"overlaps {oerr}")
+    ins_c = solver512()
+
+    def run_c(stages):
+        ins_c.precondition(path="host", directions=("ud", "lr"),
+                           stage_times=stages)
+        ins_c.search_ground_state(path="host", stage_times=stages, **gs_kw)
+    seconds, counts, stages = timed(torch, run_c)
+    add(counts, 512)
+    E = gs_recheck(tt, J1, ins_c, "host pre 512 ud+lr host search")
+    print(f"host pre 512 s1 f64 ud+lr + host search: {seconds:.3f} s  "
+          f"stages {fmt(stages)}  energy {E:.9f} deg {ins_c.degeneracy} "
+          f"(oracle {orc1['energy']}, deg {orc1['degeneracy']})  launches "
+          f"{counts}", flush=True)
+    check(abs(E - orc1["energy"]) <= 1e-9
+          and ins_c.degeneracy == orc1["degeneracy"],
+          f"host pre 512 ud+lr: energy {E} deg {ins_c.degeneracy}, want the "
+          f"oracle's {orc1['energy']} deg {orc1['degeneracy']}")
+    check(counts["marginal_epilogue"] == 64 and counts["gebal"] == 0,
+          f"host pre 512 ud+lr: launches {counts}")
+
+    # (d) the boundary stacks on the card against the CPU
+    t0 = time.perf_counter()
+    Wt = ins_c._context().Wt
+    kw = dict(Dmax=8, tolS=1e-16, tolV=1e-10, max_sweeps=20)
+    log2z = {}
+    for dev in ("cuda", "cpu"):
+        W = Wt.to(dev)
+        T, B, L, R = (getattr(tt.engine, f"build_rho{x}")(W, **kw)
+                      for x in "TBLR")
+        log2z[dev] = (log2z_interfaces(tt, T[0], T[1], B[0], B[1]),
+                      log2z_interfaces(tt, R[0], R[1], L[0], L[1]))
+    for i, name in enumerate(("rows (rhoT.rhoB)", "columns (rhoR.rhoL)")):
+        ok, ratio = rel_close(log2z["cuda"][i], log2z["cpu"][i], 1e-9)
+        z = log2z["cuda"][i].cpu()
+        print(f"host pre stacks 512 f64 D=8 {name}: log2 Z at "
+              f"{z.numel()} interfaces, spread {float(z.max() - z.min()):.6g}"
+              f" around {float(z.mean()):.9f}; card against CPU relative "
+              f"{ratio:.3g}", flush=True)
+        check(ok, f"stacks 512 {name}: the card's log2 Z differ from the "
+              f"CPU's by {ratio} relative")
+    J128 = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(os.path.join(
+        DATA, "chimera128_synth_s0.txt"))), 1 / 75)
+    s128 = tt.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J128, beta=3,
+                     device="cuda", dtype=torch.float64)
+    Wt = s128._context().Wt
+    kw = dict(Dmax=16, tolS=1e-16, tolV=1e-10, max_sweeps=20)
+    fat = {}
+    for dev in ("cuda", "cpu"):
+        W = Wt.to(dev)
+        B = tt.engine.build_rhoB(W, **kw)
+        Tf = tt.engine.build_rhoT(W, method="fat", **kw)
+        Tz = tt.engine.build_rhoT(W, **kw)
+        fat[dev] = (log2z_interfaces(tt, Tf[0], Tf[1], B[0], B[1]),
+                    log2z_interfaces(tt, Tz[0], Tz[1], B[0], B[1]))
+    ok, ratio = rel_close(fat["cuda"][0], fat["cpu"][0], 1e-9)
+    zf, zz = fat["cuda"][0].cpu(), fat["cuda"][1].cpu()
+    print(f"host pre stacks 128 f64 D=16 fat rhoT: log2 Z spread "
+          f"{float(zf.max() - zf.min()):.6g} around {float(zf.mean()):.9f};"
+          f" card against CPU relative {ratio:.3g}; zip-up against fat max "
+          f"|log2 Z difference| {float((zf - zz).abs().max()):.3g}  "
+          f"({time.perf_counter() - t0:.1f} s for (d))", flush=True)
+    check(ok, f"fat rhoT 128: the card's log2 Z differ from the CPU's by "
+          f"{ratio} relative")
+
+    # (e) the MPS API on a chimera-2048 row, card against CPU
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(3)
+    W = torch.randn((16, 16, 16, 16, 16), generator=gen,
+                    dtype=torch.float64)
+    Wns = torch.randn((3, 16, 16, 16, 16), generator=gen,
+                      dtype=torch.float64)
+    O1 = torch.randn((16, 16), generator=gen, dtype=torch.float64)
+    O2 = torch.randn((16, 16, 16, 16), generator=gen, dtype=torch.float64)
+    worst = {}
+    for initial in ("randR", "randC"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            bm = tt.bmps
+            r = {}
+            for canon in ("left", "right", "none"):
+                m = bm.init_mps(16, 32, 16, torch.float64, initial=initial,
+                                canonize=canon, seed=1, device=dev)
+                A = m.A
+                r[f"{canon} lognorm"] = m.lognorm
+                r[f"{canon} norm"] = bm.mps_dot(A.conj(), A)
+                r[f"{canon} O1"] = bm.measure_O1(A, O1)
+                if canon != "right":
+                    # a raw site's ranks are its draws' and a
+                    # left-canonical one's its Dr orthonormal columns; a
+                    # right-canonical one's as (Dl d, Dr) count the QR's
+                    # free completion rows
+                    r[f"{canon} describe"] = bm.describe(m)
+            m, _ = bm.canonize_left(bm.init_mps(
+                16, 32, 16, torch.float64, initial=initial, canonize="none",
+                seed=2, device=dev))
+            A = m.A
+            Wd = W.to(dev, A.dtype)
+            r["O2"] = bm.measure_O2(A, O2)
+            r["correlations"] = bm.measure_correlations(A, O1)
+            r["mps_dot"] = bm.mps_dot(A, A)
+            r["expectation_mpo"] = bm.expectation_mpo(A, Wd, A)
+            r["identity_mpo"] = bm.expectation_mpo(A, bm.identity_mpo(
+                16, 16, 16, A.dtype, device=dev), A)
+            r["mix"] = bm.expectation_1mpo_mix(A, Wd, A, 7,
+                                               Wns[0].to(dev, A.dtype))
+            r["list_mix"] = bm.expectation_list_1mpo_mix(
+                A, Wd, A, 15, Wns.to(dev, A.dtype))
+            FL, FR = bm.mpo_envs_at(A, Wd, A, 5)
+            r["envs_at"] = torch.einsum("blk,kdm,lerd,bec,crm->", FL, A[5],
+                                        bm.mpo_from_block(
+                                            Wd[5].reshape(256, 256), 16, 16),
+                                        A[5], FR)
+            out[dev] = r
+        for k, v in out["cuda"].items():
+            if isinstance(v, str):
+                ok, ratio = v == out["cpu"][k], 0.0
+            else:
+                ok, ratio = rel_close(v.reshape(-1), out["cpu"][k]
+                                      .reshape(-1), 1e-9)
+            worst[(initial, k)] = ratio
+            check(ok, f"MPS API {initial} {k}: the card differs from the CPU"
+                  f" ({ratio} relative)")
+        print(f"host pre MPS API {initial} (L=16, D=32, d=16): "
+              f"{len(out['cuda'])} results, card against CPU worst relative "
+              f"{max(v for (i, _), v in worst.items() if i == initial):.3g}",
+              flush=True)
+    print(f"  (e) {time.perf_counter() - t0:.1f} s", flush=True)
+    for k in SEARCH_KERNELS:
+        check(total[2048][k] + total[512][k] > 0,
+              f"phase 8: kernel {k} was not launched")
+    print(f"phase 8 (the host preconditioner and the MPS API): "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "tnax_torch")):
         fail("no tnax_torch package beside chip_smoke.py")
@@ -1518,6 +1798,9 @@ def main():
     # phase 7: the Solver's own paths
     solver, solver_host = solver_phase(tt, torch)
 
+    # phase 8: the host preconditioner and the MPS API
+    host_pre = host_pre_phase(tt, torch)
+
     # summary: kernel numbers in float32 at the fleet's shapes; launches
     # of the last f32 fleet batch of the path that runs the kernel (the
     # search for K1-K3, the sampler for K4), and of the last f32 single
@@ -1547,7 +1830,9 @@ def main():
                             launches_sample_fleet=sample[name],
                             launches_spectrum=spectrum[name],
                             launches_solver=solver[name],
-                            launches_solver_host=solver_host[name]))
+                            launches_solver_host=solver_host[name],
+                            launches_host_pre_2048=host_pre[2048][name],
+                            launches_host_pre_512=host_pre[512][name]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"imports", flush=True)
     print(smi, flush=True)

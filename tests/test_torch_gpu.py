@@ -593,3 +593,91 @@ def test_host_sampler_runs_k4_per_site(cuda):
                                            sample_site=16)
     np.testing.assert_allclose(tt.energy_Jij(J, ins.binary_states()), E,
                                atol=1e-9)
+
+
+def _chimera128(dtype):
+    import os
+    import tnax_torch as tt
+    path = os.path.join(os.path.dirname(__file__), "data",
+                        "chimera128_synth_s0.txt")
+    J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(path)), 1 / 75)
+    return tt.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J, beta=3,
+                     device="cuda", dtype=dtype)
+
+
+@pytest.mark.gpu
+def test_host_ud_matches_the_device_ladder(cuda):
+    """On the card in float64 at chimera-128, the host 'ud' sweep (its
+    stacks built on the card, swept in NumPy) against the device ladder
+    (K1) from the same gauges, at tnax's tolerances between its two
+    paths (tests/test_precondition_device.py:56-57); K1 runs only on the
+    device path."""
+    from tnax_torch import engine as eng, precondition
+    ins = _chimera128(torch.float64)
+    g0 = eng.identity_gauges(eng.pad_grid(ins.problem))
+    kw = dict(device="cuda", dtype=torch.float64)
+    for beta in (0.75, 1.5):
+        ov_h, ov_d = [], []
+        kernels.reset_launch_counts()
+        Xh = precondition.balance_ud(ins.problem, beta, g0,
+                                     overlaps_out=ov_h, **kw)
+        assert kernels.launch_counts()["gebal"] == 0
+        Xd = precondition.balance_ud_device(ins.problem, beta, g0,
+                                            overlaps_out=ov_d, **kw)
+        assert kernels.launch_counts()["gebal"] == 2 * 4
+        for k in Xh:
+            np.testing.assert_allclose(Xd[k], Xh[k], rtol=1e-9, err_msg=k)
+        np.testing.assert_allclose(ov_d[0], ov_h[0], rtol=1e-6, atol=1e-9)
+        g0 = Xh
+
+
+def _log2Z_columns(rhoL, lnL, rhoR, lnR):
+    """log2 of the contraction at every column interface k = 1..Nx-1."""
+    from tnax_torch import bmps
+    z = bmps.mps_dot(rhoR[0, 1:-1], rhoL[0, 1:-1])
+    return (torch.log2(z.abs()) + lnL[0, 1:-1] + lnR[0, 1:-1]).cpu()
+
+
+@pytest.mark.gpu
+def test_column_stacks_on_the_card_match_the_cpu(cuda):
+    """build_rhoL and build_rhoR at chimera-128 in float64, D=8: the
+    card's stacks give the CPU's log2 Z at every column interface
+    (gauge-invariant) and its overlaps."""
+    ins = _chimera128(torch.float64)
+    Wt = ins._context().Wt
+    kw = dict(Dmax=8, tolS=1e-16, tolV=1e-10, max_sweeps=20)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        L = engine.build_rhoL(Wt.to(dev), **kw)
+        R = engine.build_rhoR(Wt.to(dev), **kw)
+        outs[dev] = (_log2Z_columns(L[0], L[1], R[0], R[1]),
+                     L[2].cpu(), R[2].cpu())
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=0)
+
+
+@pytest.mark.gpu
+def test_complex_mps_canonizes_on_the_card(cuda):
+    """init_mps('randC') and canonize_left on CUDA: the CPU's dense
+    complex state, lognorm and <conj(A)|A>."""
+    from tnax_torch import bmps
+
+    def dense(m):
+        v = m.A[0, :1]                     # (1, d, D)
+        for n in range(1, m.A.shape[0]):
+            v = torch.einsum("xa,adb->xdb", v.reshape(-1, v.shape[-1]),
+                             m.A[n])
+        return v.reshape(-1, v.shape[-1])[:, 0].cpu() \
+            * 2.0 ** float(m.lognorm)
+
+    got = {}
+    for dev in ("cuda", "cpu"):
+        raw = bmps.init_mps(5, 8, 3, torch.float64, initial="randC",
+                            canonize="none", seed=4, device=dev)
+        m, _ = bmps.canonize_left(raw)
+        assert m.A.dtype == torch.complex128 and m.A.device.type == dev
+        got[dev] = (dense(m), bmps.mps_dot(m.A.conj(), m.A).cpu())
+    torch.testing.assert_close(got["cuda"][0], got["cpu"][0], rtol=1e-10,
+                               atol=1e-12)
+    torch.testing.assert_close(got["cuda"][1], got["cpu"][1], rtol=1e-10,
+                               atol=0)

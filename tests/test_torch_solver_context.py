@@ -120,7 +120,7 @@ def test_precondition_matches_tnax_device_ladder(monkeypatch):
         np.random.seed(7)
         s.add_noise(1e-7)
     ins_j.precondition(path="device")
-    ins.precondition(omega=tnax_omega)
+    ins.precondition(path="device", omega=tnax_omega)
     for k in ("Xl", "Xr", "Xu", "Xd"):
         np.testing.assert_allclose(ins._gauges[k][0].numpy(),
                                    ins_j._gauges[k], rtol=1e-10)
@@ -133,12 +133,22 @@ def test_precondition_matches_tnax_device_ladder(monkeypatch):
                                np.asarray(ins_j._context().lB), rtol=1e-10)
 
 
-def test_unported_paths_raise():
-    _, ins = _pair()
-    with pytest.raises(NotImplementedError):
-        ins.precondition(path="host")
-    with pytest.raises(NotImplementedError):
-        ins.precondition(directions=("ud", "lr"))
+def test_unported_paths_raise(monkeypatch):
+    """No path of tnax's preconditioner is left unported: the host sweeps
+    and the 'lr' direction on either path give tnax's gauges; a path
+    that neither package has is a ValueError."""
+    monkeypatch.setenv("TNAX_ZIPUP_RSVD", "1")
+    for path, directions in (("host", ("ud",)), ("device", ("ud", "lr"))):
+        ins_j, ins = _pair()
+        ins_j.precondition(path=path, directions=directions)
+        ins.precondition(path=path, directions=directions, omega=tnax_omega)
+        for k in ("Xl", "Xr", "Xu", "Xd"):
+            np.testing.assert_allclose(ins._gauges[k][0].numpy(),
+                                       ins_j._gauges[k], rtol=1e-10)
+        np.testing.assert_allclose(ins.overlaps_ud, ins_j.overlaps_ud,
+                                   rtol=1e-10)
+    with pytest.raises(ValueError, match="path"):
+        ins.precondition(path="gpu")
 
 
 SMALL = dict(M=16, Dmax=4, pre_Dmax=4, cand_factor=2)

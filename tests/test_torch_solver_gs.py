@@ -292,7 +292,7 @@ def test_solver_device_path_is_the_flagship_search():
     _, ins = _pair(seed=9, Nx=3, Ny=3)
     kw = dict(M=32, relative_P_cutoff=1e-8, Dmax=8, max_sweeps=2)
     want = parallel.flagship_search_gs(ins, omega=tnax_omega, **kw)
-    ins.precondition(steps=1, omega=tnax_omega)
+    ins.precondition(steps=1, path="device", omega=tnax_omega)
     ins.search_ground_state(path="device", omega=tnax_omega, **kw)
     assert np.array_equal(ins.states[0][ins.order_i], want["states"])
     assert ins.degeneracy == want["degeneracy"]

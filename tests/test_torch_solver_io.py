@@ -274,12 +274,20 @@ def test_solver_without_couplings_as_tnax():
 
 
 def test_only_the_host_ladder_and_lr_stay_unported():
-    _, ins = _ising_pair(noise=False)
-    with pytest.raises(NotImplementedError):
-        ins.precondition(path="host")
-    with pytest.raises(NotImplementedError):
-        ins.precondition(directions=("ud", "lr"))
+    """The host ladder and 'lr' are ported now: on the rotated solver
+    both preconditioner paths run in both directions and give tnax's
+    gauges. Every method refuses a path that neither package has."""
+    for path in ("host", "device"):
+        ins_j, ins = _ising_pair(noise=False)
+        ins_j.precondition(path=path, directions=("ud", "lr"))
+        ins.precondition(path=path, directions=("ud", "lr"),
+                         omega=tnax_omega)
+        for k in ("Xl", "Xr", "Xu", "Xd"):
+            np.testing.assert_allclose(ins._gauges[k][0].numpy(),
+                                       ins_j._gauges[k], rtol=1e-10)
     for method in (ins.search_ground_state, ins.gibbs_sampling,
                    ins.search_low_energy_spectrum):
         with pytest.raises(ValueError, match="path"):
             method(M=4, Dmax=4, path="gpu")
+    with pytest.raises(ValueError, match="path"):
+        ins.precondition(path="gpu")

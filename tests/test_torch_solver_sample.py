@@ -162,7 +162,7 @@ def test_solver_sampling_is_the_flagship_sampler():
     on the same seed: one sampling body."""
     _, (_, ins) = _pair(24)
     want = parallel.flagship_sample(ins, seed=9, omega=tnax_omega, **KW)
-    ins.precondition(steps=1, tolS=1e-15, omega=tnax_omega)
+    ins.precondition(steps=1, tolS=1e-15, path="device", omega=tnax_omega)
     ins.gibbs_sampling(path="device", seed=9, omega=tnax_omega, **KW)
     assert np.array_equal(ins.states[:, ins.order_i], want["states"])
     np.testing.assert_array_equal(ins.energy, want["energy"])

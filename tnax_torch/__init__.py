@@ -6,12 +6,13 @@ follow tnax's so that each counterpart can be found. The ``Solver`` takes
 tnax's arguments and methods: the ground-state search, Gibbs sampling and
 the low-energy spectrum, each on tnax's two paths (``path="host"``, the
 default, with exact host bookkeeping; ``path="device"``, all on the
-device), Ising and RMF problems, and ``save``/``load``::
+device), the balancing preconditioner (its 'ud' sweeps on either path,
+'lr' on the host), Ising and RMF problems, and ``save``/``load``::
 
     import numpy as np, tnax_torch as tt
     J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(path)), 1 / 75)
     ins = tt.Solver(mode="Ising", Nx=16, Ny=16, Nc=8, J=J, beta=3)
-    ins.precondition()
+    ins.precondition()      # or (path="host", directions=("ud", "lr"))
     ins.search_ground_state(M=1024, relative_P_cutoff=1e-8, Dmax=32)
     ins.energy, ins.degeneracy, ins.binary_states()
     ins.gibbs_sampling(M=128, Dmax=48, seed=0)      # ins.energy, ins.states
@@ -24,6 +25,16 @@ device), Ising and RMF problems, and ``save``/``load``::
     ins.decode_low_energy_states(max_dEng=1.0)
     ins.save("result.npy")
     same = tt.load("result.npy")
+
+The boundary-MPS layer is tnax's too (``tnax_torch.bmps``: the MPS API
+of ``init_mps``, ``canonize_left``/``canonize_right``, ``compress``,
+``apply_mpo``, the expectation values and measurements, ``mps_dot``;
+``tnax_torch.engine``: the four stack functions ``build_rhoT/B/L/R``,
+zip-up or fat), and so are the preconditioner's named functions
+(``tnax_torch.precondition``: ``balance_ud``, ``balance_lr``,
+``balance_ud_device``, ``precondition_ladder_device``,
+``precondition_fleet``); ``tnax_torch.interop`` carries tnax's arrays
+across.
 
 Fleets of same-shape instances run through one batch axis: the context
 functions (``parallel.multi_search_gs``, ``parallel.multi_sample``,
@@ -42,7 +53,8 @@ store runs on the host, its hot loops in C (``tnax_torch.native``, built
 with the system C compiler at first use).
 """
 
-from . import config, parallel, sample, search, spectrum
+from . import (bmps, config, engine, interop, parallel, precondition,
+               sample, search, spectrum)
 from .parallel import flagship_sample, multi_flagship_sample
 from .spectrum import multi_search_spectrum
 from .problems import (Jij_f2p, energy_Jij, energy_RMF, load_Jij,
@@ -50,7 +62,8 @@ from .problems import (Jij_f2p, energy_Jij, energy_RMF, load_Jij,
 from .solver import Solver, load, tnac4o
 
 __all__ = ["Solver", "tnac4o", "load", "parallel", "config", "sample",
-           "search", "spectrum", "flagship_sample", "multi_flagship_sample",
+           "search", "spectrum", "bmps", "engine", "precondition", "interop",
+           "flagship_sample", "multi_flagship_sample",
            "multi_search_spectrum", "load_Jij", "round_Jij", "minus_Jij",
            "Jij_f2p", "energy_Jij", "energy_RMF"]
 

@@ -122,36 +122,127 @@ def peps_rows(Es, Esl, Esu, dmap, rmap, Xl, Xr, Xu, Xd, beta, *, lh, lv):
     return lB, Wt
 
 
-def build_rhoT(Wt, *, Dmax, tolS, tolV, max_sweeps, rsvd=True, omega=None):
+def _absorb_row(mps, Wrow, conj, Dmax, tolS, tolV, max_sweeps, graduate,
+                method, rsvd, omega):
+    """One row (or column) absorbed into the boundary: the zip-up
+    (``bmps.compress_apply``) or the fat path (``bmps.apply_mpo`` then
+    ``bmps.compress`` with graduate truncation). Returns (MPS, overlap,
+    discarded, sweeps), each (B,)."""
+    if method == "zipup":
+        return bmps.compress_apply(mps, Wrow, Dmax, conj=conj, tolS=tolS,
+                                   tolV=tolV, max_sweeps=max_sweeps,
+                                   rsvd=rsvd, omega=omega)
+    if method != "fat":
+        raise ValueError(f"method must be 'zipup' or 'fat', got {method!r}")
+    fat = bmps.apply_mpo(mps, Wrow, conj=conj)
+    return bmps.compress(fat, Dmax, tolS=tolS, tolV=tolV,
+                         max_sweeps=max_sweeps, graduate=graduate)
+
+
+def _build_stack(rows, *, conj, forward, Dmax, tolS, tolV, max_sweeps,
+                 graduate, method, rsvd, omega):
+    """A boundary-MPS stack over the rows (B, N, L, l, d, r, u), absorbed
+    in order (``forward``) or in reverse, each with ``conj``. Returns
+    (rho (B, N+1, L, Dmax, d, Dmax), lognorms (B, N+1), overlaps (B, N),
+    discarded (B, N)) in row order: the trivial boundary first (forward)
+    or last (reverse); overlaps[:, k] and discarded[:, k] are those of
+    absorbing row k."""
+    B, N, L = rows.shape[:3]
+    mps = mps0 = bmps.trivial_mps(B, L, Dmax, rows.shape[4], rows.dtype,
+                                  rows.device)
+    As, lns, ovs, dss = [], [], [], []
+    for k in (range(N) if forward else range(N - 1, -1, -1)):
+        mps, overlap, disc, _ = _absorb_row(
+            mps, rows[:, k], conj, Dmax, tolS, tolV, max_sweeps, graduate,
+            method, rsvd, omega)
+        As.append(mps.A)
+        lns.append(mps.lognorm)
+        ovs.append(overlap)
+        dss.append(disc)
+    zero = torch.zeros_like(mps0.lognorm)
+    if forward:
+        As, lns = [mps0.A] + As, [zero] + lns
+    else:
+        As, lns, ovs, dss = (As[::-1] + [mps0.A], lns[::-1] + [zero],
+                             ovs[::-1], dss[::-1])
+    return (torch.stack(As, dim=1), torch.stack(lns, dim=1),
+            torch.stack(ovs, dim=1), torch.stack(dss, dim=1))
+
+
+def build_rhoT(Wt, *, Dmax, tolS, tolV, max_sweeps, graduate=True,
+               method="zipup", rsvd=True, omega=None):
     """Boundary-MPS stacks from the bottom edge upward.
 
     Wt: (B, Ny, Nx, lh, lv, lh, lv) traced row tensors of B instances.
     Returns (rhoT, lognorms, overlaps, discarded) with leading axis B;
     rhoT[b, ny] (ny=0..Ny) contracts rows ny..Ny-1 as an MPS over columns
     whose physical legs are the up-legs of row ny; rhoT[b, Ny] is the
-    trivial boundary.
+    trivial boundary. ``method`` "zipup" absorbs each row fat-MPS-free
+    (``rsvd`` and ``omega`` set its truncation, see
+    ``bmps.zipup_apply``); "fat" materializes the D*l-bond MPS and
+    compresses it with the reference's schedule (``graduate`` truncation;
+    ``graduate`` has no effect on the zip-up).
     """
-    B, Ny, Nx, lh, lv = Wt.shape[:5]
-    mps = mps0 = bmps.trivial_mps(B, Nx, Dmax, lv, Wt.dtype, Wt.device)
-    As, lns, ovs, dss = [], [], [], []
-    for ny in range(Ny - 1, -1, -1):
-        mps, overlap, disc, _ = bmps.compress_apply(
-            mps, Wt[:, ny], Dmax, conj=True, tolS=tolS, tolV=tolV,
-            max_sweeps=max_sweeps, rsvd=rsvd, omega=omega)
-        As.append(mps.A)
-        lns.append(mps.lognorm)
-        ovs.append(overlap)
-        dss.append(disc)
-    rhoT = torch.stack(As[::-1] + [mps0.A], dim=1)
-    lognorms = torch.stack(lns[::-1] + [torch.zeros_like(mps0.lognorm)],
-                           dim=1)
-    return rhoT, lognorms, torch.stack(ovs[::-1], 1), torch.stack(dss[::-1], 1)
+    return _build_stack(Wt, conj=True, forward=False, Dmax=Dmax, tolS=tolS,
+                        tolV=tolV, max_sweeps=max_sweeps, graduate=graduate,
+                        method=method, rsvd=rsvd, omega=omega)
+
+
+def build_rhoB(Wt, *, Dmax, tolS, tolV, max_sweeps, graduate=True,
+               method="zipup", rsvd=True, omega=None):
+    """Boundary-MPS stacks from the top edge downward (the mirror of
+    :func:`build_rhoT`): rhoB[b, ny] contracts rows 0..ny-1, its physical
+    legs on the up-legs of row ny; rhoB[b, 0] is trivial. Returns (rhoB,
+    lognorms, overlaps, discarded) as :func:`build_rhoT` does (tnax's
+    returns no lognorms)."""
+    return _build_stack(Wt, conj=False, forward=True, Dmax=Dmax, tolS=tolS,
+                        tolV=tolV, max_sweeps=max_sweeps, graduate=graduate,
+                        method=method, rsvd=rsvd, omega=omega)
+
+
+def columns_view(Wt):
+    """The traced tensors (B, Ny, Nx, l, d, r, u) reoriented for the
+    column-wise (left/right) boundary MPS, (B, Nx, Ny, u, l, d, r): the
+    chain legs become the vertical (u, d) legs and the contracted and
+    output physical legs the horizontal (l, r) ones."""
+    return Wt.permute(0, 2, 1, 6, 3, 4, 5)
+
+
+def build_rhoL(Wt, *, Dmax, tolS, tolV, max_sweeps, graduate=True,
+               method="zipup", rsvd=True, omega=None):
+    """Boundary-MPS stacks from the left edge rightward: rhoL[b, nx]
+    (nx=0..Nx) contracts columns 0..nx-1 as an MPS over the rows whose
+    physical legs are the left-legs of column nx; rhoL[b, 0] is trivial.
+    The zip-up's sketch ``omega`` has the chain length Ny. Returns
+    (rhoL, lognorms, overlaps, discarded)."""
+    return _build_stack(columns_view(Wt), conj=True, forward=True,
+                        Dmax=Dmax, tolS=tolS, tolV=tolV,
+                        max_sweeps=max_sweeps, graduate=graduate,
+                        method=method, rsvd=rsvd, omega=omega)
+
+
+def build_rhoR(Wt, *, Dmax, tolS, tolV, max_sweeps, graduate=True,
+               method="zipup", rsvd=True, omega=None):
+    """Boundary-MPS stacks from the right edge leftward: rhoR[b, nx]
+    contracts columns nx..Nx-1, its physical legs on the left-legs of
+    column nx; rhoR[b, Nx] is trivial. Returns (rhoR, lognorms,
+    overlaps, discarded)."""
+    return _build_stack(columns_view(Wt), conj=False, forward=False,
+                        Dmax=Dmax, tolS=tolS, tolV=tolV,
+                        max_sweeps=max_sweeps, graduate=graduate,
+                        method=method, rsvd=rsvd, omega=omega)
+
+
+def _swap_du(Wt):
+    """The traced tensors with their down and up legs swapped: a
+    conj=False absorption of Wt is a conj=True absorption of this."""
+    return Wt.permute(0, 1, 2, 3, 6, 5, 4)
 
 
 def build_rho_both(Wt, *, Dmax, tolS, tolV, max_sweeps, rsvd=True,
                    omega=None):
-    """Both boundary stacks (rhoT, rhoB) of B instances in one batched
-    build of 2B lanes.
+    """Both zip-up boundary stacks (rhoT, rhoB) of B instances in one
+    batched build of 2B lanes.
 
     A bottom-boundary row absorption is a top-boundary absorption of the
     up/down-swapped tensor, and the forward build is the reverse build
@@ -161,13 +252,24 @@ def build_rho_both(Wt, *, Dmax, tolS, tolV, max_sweeps, rsvd=True,
     the unbatched build.
     """
     B = Wt.shape[0]
-    WtB = torch.flip(Wt.permute(0, 1, 2, 3, 6, 5, 4), dims=(1,))
+    WtB = torch.flip(_swap_du(Wt), dims=(1,))
     rho = build_rhoT(torch.cat([Wt, WtB]), Dmax=Dmax, tolS=tolS, tolV=tolV,
                      max_sweeps=max_sweeps, rsvd=rsvd, omega=omega)[0]
     rhoT, rhoBm = rho[:B], rho[B:]
     rhoB = torch.cat([rhoBm[:, -1:], torch.flip(rhoBm[:, :-1], dims=(1,))],
                      dim=1)
     return rhoT, rhoB
+
+
+def build_rho_lr(Wt, *, Dmax, tolS, tolV, max_sweeps, rsvd=True,
+                 omega=None):
+    """Both zip-up column stacks (rhoL, rhoR) of B instances in one build
+    of 2B lanes: rhoR is the top-boundary build of the up/down-swapped
+    column view and rhoL the mirrored lane (see :func:`build_rho_both`)."""
+    rhoR, rhoL = build_rho_both(
+        _swap_du(columns_view(Wt)), Dmax=Dmax, tolS=tolS, tolV=tolV,
+        max_sweeps=max_sweeps, rsvd=rsvd, omega=omega)
+    return rhoL, rhoR
 
 
 def _take(x, idx):

@@ -36,10 +36,14 @@ def gauges(X, device, dtype):
 
 
 def mps(A, lognorm, device, dtype):
-    """tnax boundary MPS (stacked ``A`` (L, D, d, D) and scalar
-    ``lognorm``, or a fleet's (B, L, D, d, D) and (B,)) -> :class:`MPS`
-    with the instance axis."""
-    return MPS(A=_batch(_t(A, device, dtype), 4),
+    """tnax MPS (stacked ``A`` (L, D, d, D) and scalar ``lognorm``, or a
+    fleet's (B, L, D, d, D) and (B,)) -> :class:`MPS` with the instance
+    axis. ``dtype`` is the real precision: a complex ``A`` (tnax's
+    'randC') keeps its phase in the complex dtype of that precision, and
+    the lognorm is real."""
+    A = _t(A, device)
+    A = A.to(dtype.to_complex() if A.is_complex() else dtype)
+    return MPS(A=_batch(A, 4),
                lognorm=_batch(_t(lognorm, device, dtype), 0))
 
 

@@ -41,14 +41,13 @@ is bit-identical to its ``topk``).
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from . import engine
 from . import precondition as pre
 from .bmps import check_rsvd
+from .config import StageClock
 from .kernels.marginal import boltzmann_columns
 from .search import ContractionContext, fleet_tables
 from .kernels.merge import merge_segments, segment_stats_plain
@@ -577,25 +576,6 @@ def search_inputs(ctx):
 # the flagship pipelines
 # ---------------------------------------------------------------------------
 
-class _StageClock:
-    """Seconds per pipeline stage, each ended by a device synchronize and
-    added to the stage's entry of the dict (a stage run twice, as in a
-    retried search, counts twice); inert when no dict is given."""
-
-    def __init__(self, out, device):
-        self.out, self.device = out, device
-        self.t = time.perf_counter() if out is not None else None
-
-    def lap(self, name):
-        if self.out is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.out[name] = self.out.get(name, 0.0) + now - self.t
-        self.t = now
-
-
 def _check_select(select):
     """tnax's ``select``: "topk" and "sort" are bit-identical selections,
     both the port's stable sort; its "radix" and "compact" modes are not
@@ -669,7 +649,7 @@ def multi_search_gs(ctxs, M=2 ** 10, relative_P_cutoff=1e-6, min_dEng=1e-12,
     ctx = ContractionContext.stack(list(ctxs))
     _check_select(select)
     check_rsvd(zipup_rsvd)
-    clock = _StageClock(stage_times, ctx.device)
+    clock = StageClock(stage_times, ctx.device)
     if ctx.rhoT is None or ctx.Dmax != Dmax:
         ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
                            rsvd=zipup_rsvd, omega=omega)
@@ -750,7 +730,7 @@ def multi_flagship_search_gs(solvers, M=2 ** 10, relative_P_cutoff=1e-6,
     _check_select(select)
     check_rsvd(zipup_rsvd)
     f = fleet_tables(solvers)
-    clock = _StageClock(stage_times, f["device"])
+    clock = StageClock(stage_times, f["device"])
     ctx = _boundary_stages(
         solvers, f, clock, pre_steps=pre_steps, max_scale=max_scale,
         Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
@@ -893,7 +873,7 @@ def multi_sample(ctxs, M=2 ** 10, Dmax=32, tolS=1e-15, tolV=1e-10,
         if tuple(u.shape) != shape:
             raise ValueError(f"uniforms must have shape {shape} "
                              f"(B, Ny, Nx, M), got {tuple(u.shape)}")
-    clock = _StageClock(stage_times, dev)
+    clock = StageClock(stage_times, dev)
     if ctx.rhoT is None or ctx.Dmax != Dmax:
         ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
                            omega=omega)
@@ -964,7 +944,7 @@ def multi_flagship_sample(solvers, M=2 ** 10, Dmax=32, tolS=1e-15,
                                   "ported yet")
     check_rsvd(zipup_rsvd)
     f = fleet_tables(solvers)
-    clock = _StageClock(stage_times, f["device"])
+    clock = StageClock(stage_times, f["device"])
     ctx = _boundary_stages(
         solvers, f, clock, pre_steps=pre_steps, max_scale=max_scale,
         Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,

@@ -19,7 +19,7 @@ import dataclasses
 
 import numpy as np
 
-from . import parallel
+from . import config, parallel
 
 
 @dataclasses.dataclass
@@ -38,7 +38,7 @@ def gibbs_sampling(ctx, M=2 ** 10, Dmax=32, tolS=1e-15, tolV=1e-10,
     fresh ``np.random.default_rng()``, as in tnax), drawn in tnax's order.
     ``omega`` is the zip-up's sketch; ``stage_times``, if a dict,
     receives the seconds of the boundary and of the pass."""
-    clock = parallel._StageClock(stage_times, ctx.device)
+    clock = config.StageClock(stage_times, ctx.device)
     ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
                        omega=omega)
     clock.lap("boundary")

@@ -30,6 +30,7 @@ import torch
 
 from . import engine
 from .bmps import check_rsvd
+from .config import StageClock
 from .kernels.marginal import NEG, boltzmann_columns
 
 logger = logging.getLogger("tnax_torch")
@@ -57,21 +58,13 @@ def fleet_tables(solvers):
     take into device tensors with a leading instance axis.
 
     The instances must share (Ny, Nx, Np, lh, lv), beta, device and dtype
-    (ValueError otherwise). Returns a dict of the dims, the device and
-    dtype, the host grids, the stacked shifted tables of the PEPS rows, the
-    identity gauges X0, the valid vertical leg dims ndall (B, Ny-1, Nx),
-    nvalid (B, Ny, Nx), beta and the host list cols (Ny, Nx) of
-    snake-order columns.
+    (ValueError otherwise). Returns :func:`problem_tables` of their
+    problems at their beta, device and dtype.
     """
     if not solvers:
         raise ValueError("a fleet needs at least one solver")
     ins0 = solvers[0]
-    grids = [engine.pad_grid(ins.problem) for ins in solvers]
-    shape = lambda g: (g.Ny, g.Nx, g.Np, g.lh, g.lv)   # noqa: E731
-    for ins, g in zip(solvers, grids):
-        if shape(g) != shape(grids[0]):
-            raise ValueError(f"fleet instances must share (Ny, Nx, Np, lh, "
-                             f"lv): {shape(g)} != {shape(grids[0])}")
+    for ins in solvers:
         if ins.beta != ins0.beta:
             raise ValueError(f"fleet instances share one beta: {ins.beta} "
                              f"!= {ins0.beta}")
@@ -79,27 +72,45 @@ def fleet_tables(solvers):
             raise ValueError(f"fleet instances share one device and dtype: "
                              f"{ins.device} {ins.dtype} != {ins0.device} "
                              f"{ins0.dtype}")
-    dtype, dev = ins0.dtype, ins0.device
+    return problem_tables([ins.problem for ins in solvers], ins0.beta,
+                          ins0.device, ins0.dtype)
+
+
+def problem_tables(problems, beta, device, dtype):
+    """The tables of same-shape problems (ValueError unless they share
+    (Ny, Nx, Np, lh, lv)) as device tensors with a leading instance axis:
+    a dict of the dims, the device and dtype, the host grids and
+    problems, the stacked shifted tables of the PEPS rows, the identity
+    gauges X0, the valid vertical leg dims ndall (B, Ny-1, Nx), nvalid
+    (B, Ny, Nx), beta and the host list cols (Ny, Nx) of snake-order
+    columns."""
+    if not problems:
+        raise ValueError("need at least one problem")
+    grids = [engine.pad_grid(p) for p in problems]
+    shape = lambda g: (g.Ny, g.Nx, g.Np, g.lh, g.lv)   # noqa: E731
+    for g in grids:
+        if shape(g) != shape(grids[0]):
+            raise ValueError(f"fleet instances must share (Ny, Nx, Np, lh, "
+                             f"lv): {shape(g)} != {shape(grids[0])}")
     Ny, Nx, Np, lh, lv = shape(grids[0])
-    B = len(solvers)
+    B = len(problems)
 
     def fleet(arrays, dt=dtype):
         """Stack one host array per instance into a device tensor."""
-        return torch.as_tensor(np.stack(arrays), device=dev).to(dt)
+        return torch.as_tensor(np.stack(arrays), device=device).to(dt)
 
     return dict(
-        B=B, Ny=Ny, Nx=Nx, Np=Np, lh=lh, lv=lv, dtype=dtype, device=dev,
-        grids=grids, problems=[ins.problem for ins in solvers],
+        B=B, Ny=Ny, Nx=Nx, Np=Np, lh=lh, lv=lv, dtype=dtype, device=device,
+        grids=grids, problems=list(problems),
         Es=fleet([g.Es for g in grids]), Esl=fleet([g.Esl for g in grids]),
         Esu=fleet([g.Esu for g in grids]),
         dmap=fleet([g.dmap for g in grids], torch.int32),
         rmap=fleet([g.rmap for g in grids], torch.int32),
         X0={k: fleet([v] * B)
             for k, v in engine.identity_gauges(grids[0]).items()},
-        ndall=fleet([ins.problem.ld[: Ny - 1] for ins in solvers],
-                    torch.int32),
+        ndall=fleet([p.ld[: Ny - 1] for p in problems], torch.int32),
         nvalid=fleet([g.nstates for g in grids], torch.int64),
-        beta=float(ins0.beta),
+        beta=float(beta),
         cols=(np.arange(Ny)[:, None] * Nx
               + np.arange(Nx)[None, :]).tolist())
 
@@ -463,8 +474,7 @@ def search_ground_state(ctx, M=2 ** 10, relative_P_cutoff=1e-6,
     ``stage_times``, if a dict, receives the seconds of the boundary and
     of the search.
     """
-    from .parallel import _StageClock
-    clock = _StageClock(stage_times, ctx.device)
+    clock = StageClock(stage_times, ctx.device)
     t_total = time.time()
     if checkpoint_path and not str(checkpoint_path).endswith(".npz"):
         # np.savez appends '.npz': resume loads the file it wrote

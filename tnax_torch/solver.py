@@ -3,15 +3,14 @@
 
 The constructor (Ising or RMF, with an explicit ``device`` and
 ``dtype``), rotations, noise, the contraction context, the balancing
-preconditioner on the device, the ground-state search and Gibbs sampling
-on both of tnax's paths (``path="host"``, the default: exact float64 beam
-bookkeeping or NumPy random numbers on the host, one device read per
-site; ``path="device"``: the whole search or sampling pass on the
-device), the low-energy spectrum on both paths and its decoding, the
-found ``states`` decoded to spin bit-strings, ``save`` and the
-module-level :func:`load` (the reference's ``.npy`` format), and the
-``show_*`` displays. ``precondition(path="host")`` and the 'lr' direction
-are not ported (NotImplementedError).
+preconditioner (its 'ud' direction on both of tnax's paths, 'lr' on the
+host), the ground-state search and Gibbs sampling on both of tnax's
+paths (``path="host"``, the default: exact float64 beam bookkeeping or
+NumPy random numbers on the host, one device read per site;
+``path="device"``: the whole search or sampling pass on the device), the
+low-energy spectrum on both paths and its decoding, the found ``states``
+decoded to spin bit-strings, ``save`` and the module-level :func:`load`
+(the reference's ``.npy`` format), and the ``show_*`` displays.
 """
 
 from __future__ import annotations
@@ -130,42 +129,64 @@ class Solver:
                      max_sweeps=20, directions=("ud",), path=None,
                      omega=None, stage_times=None):
         """Balancing preconditioner (reference `tnac4o/tnac4o.py:342-379`)
-        on the device: the 'ud' beta ladder (``precondition._ladder_program``,
-        kernel K1 on CUDA) from the current gauges, at the rungs
-        ``beta_cond`` (default beta * 2**(n - steps)) with boundary bonds
-        ``Dmax_cond`` (default 8). Sets the gauges and ``overlaps_ud``
-        (two rows per rung, tnax's). ``path="host"`` and the 'lr'
-        direction are not ported (NotImplementedError). ``omega`` is the
-        ladder's zip-up sketch; ``stage_times``, if a dict, receives the
-        seconds of the ladder (ended by a synchronize).
+        from the current gauges, at the rungs ``beta_cond`` (default
+        beta * 2**(n - steps)) with boundary bonds ``Dmax_cond`` (default
+        8). On each rung the ``directions`` run in the order given: 'ud'
+        on ``path`` and 'lr' on the host. ``path="host"`` builds each
+        rung's boundary stacks on the device and sweeps them on the host
+        in float64 (``precondition.ud_host``, tnax's ``balance_ud``);
+        ``path="device"`` runs the 'ud' sweeps on the device as well
+        (``precondition._ladder_program``, kernel K1 on CUDA); None takes
+        tnax's default for the solver's device: the host on the CPU, the
+        device on CUDA. 'lr' is tnax's ``balance_lr``
+        (``precondition.lr_host``). Sets the gauges and ``overlaps_ud``
+        (two rows per 'ud' sweep, tnax's). ``omega`` is the zip-up's
+        sketch (``graduate_truncation`` has no effect on it);
+        ``stage_times``, if a dict, receives the seconds of the
+        device ladder ("ladder") or of the host path's builds and sweeps
+        ("ud builds", "ud sweeps", "lr builds", "lr sweeps"), each ended
+        by a synchronize.
         """
         if mode != "balancing":
             raise ValueError("only mode='balancing' is implemented")
-        if path not in (None, "device"):
-            raise NotImplementedError(f"precondition path {path!r} is not "
-                                      f"ported: only the device ladder")
-        if tuple(directions) != ("ud",):
-            raise NotImplementedError(f"directions {tuple(directions)}: "
-                                      f"only ('ud',) is ported")
+        if path is None:
+            path = "host" if self.device.type == "cpu" else "device"
+        if path not in ("host", "device"):
+            raise ValueError(f"path must be 'host' or 'device', got {path!r}")
+        for direction in directions:
+            if direction not in ("ud", "lr"):
+                raise ValueError(f"directions are 'ud' and 'lr', got "
+                                 f"{direction!r}")
         if not beta_cond:
             beta_cond = _pre.ladder_betas(self.beta, steps)
         if not Dmax_cond:
             Dmax_cond = [8] * len(beta_cond)
-        clock = _par._StageClock(stage_times, self.device)
+        clock = config.StageClock(stage_times, self.device)
         ctx = self._context()
         f = ctx.tables
-        X, overs = ctx.gauges, []
+        X, overlaps = ctx.gauges, []
+        ms = _pre.ladder_max_scale(max_scale)
+        kw = dict(tolS=tolS, tolV=tolV, max_sweeps=max_sweeps, omega=omega)
         for beta, D in zip(beta_cond, Dmax_cond):
-            X, o = _pre._ladder_program(
-                f["Es"], f["Esl"], f["Esu"], f["dmap"], f["rmap"], X,
-                [beta], f["ndall"], _pre.ladder_max_scale(max_scale),
-                Dmax=D, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
-                lh=f["lh"], lv=f["lv"], omega=omega)
-            overs.append(o[0])
+            logger.info("Preconditioning with beta = %.2f", beta)
+            for direction in directions:
+                if direction == "lr":
+                    X = _pre.lr_host(f, beta, X, Dmax=D, max_scale=ms,
+                                     clock=clock, **kw)
+                elif path == "host":
+                    X, o = _pre.ud_host(f, beta, X, Dmax=D, max_scale=ms,
+                                        clock=clock, **kw)
+                    overlaps.append(o[0])
+                else:
+                    X, o = _pre._ladder_program(
+                        f["Es"], f["Esl"], f["Esu"], f["dmap"], f["rmap"],
+                        X, [beta], f["ndall"], ms, Dmax=D, lh=f["lh"],
+                        lv=f["lv"], **kw)
+                    clock.lap("ladder")
+                    overlaps.append(_pre.overlaps_ud(o[0].cpu().numpy()))
         self._gauges = X
-        clock.lap("ladder")
-        self.overlaps_ud = _pre.overlaps_ud(
-            np.concatenate([o.cpu().numpy() for o in overs])) if overs \
+        # worst-case mixed overlaps per interface, one row pair per sweep
+        self.overlaps_ud = np.vstack(overlaps) if overlaps \
             else np.empty((0, max(self.Ny - 1, 0)))
 
     def search_ground_state(self, M=2 ** 10, relative_P_cutoff=1e-6,

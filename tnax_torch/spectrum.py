@@ -39,7 +39,8 @@ import torch
 
 from . import native as _native
 from . import parallel as par
-from .parallel import NEG, _StageClock
+from .config import StageClock
+from .parallel import NEG
 from .problems import block_bits
 from .search import (ContractionContext, HostSites, SearchResult,
                      expand_candidates, merge_by_vind, top_m)
@@ -775,7 +776,7 @@ def search_spectrum(ins, ctx, excitations_encoding, M=2 ** 10,
     ``search.SearchResult``.
     """
     ee = excitations_encoding
-    clock = _StageClock(stage_times, ctx.device)
+    clock = StageClock(stage_times, ctx.device)
     ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
                        rsvd=zipup_rsvd, omega=omega)
     clock.lap("boundary")
@@ -1186,7 +1187,7 @@ def _search(inss, ctx, ee, *, M, relative_P_cutoff, max_dEng, lim_hd,
             n_live=None):
     """The spectrum search of the instances ``inss`` of the context
     ``ctx``: boundary, records, replay of each live instance."""
-    clock = _StageClock(stage_times, ctx.device)
+    clock = StageClock(stage_times, ctx.device)
     ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
                        rsvd=zipup_rsvd, omega=omega)
     clock.lap("boundary")
