@@ -26,7 +26,7 @@ Run from the root of a checkout on a machine with one CUDA card. It
      1e-8: at the default merge cap (cand_factor=8) float64 once,
      float32 cold and three warm runs, then the full expansion
      (cand_factor=None, C = M * Np = 262,144 candidates per site) float64
-     once and float32 cold and three warm, with per-stage times; the
+     once and float32 cold and warm, with per-stage times; the
      launch counters show that every kernel ran (at the full expansion K2
      and K3 once per site), the returned energy is checked against
      ``energy_Jij`` of the returned state, the float64 energy against the
@@ -43,17 +43,18 @@ Run from the root of a checkout on a machine with one CUDA card. It
      instances, whose agreement with the fleet is printed, not gated;
   5. drives Gibbs sampling through its entry points (Solver ->
      flagship_sample / multi_flagship_sample) at beta=3, D=48,
-     pre_steps=2: the e02 point (128 walkers) on chimera512_synth_s1 and
-     on the fleet of 8 (float64 once, float32 cold and three warm), and
-     1024 walkers on chimera-2048 (float32 once, then float32
-     and float64 with every draw examined), with stage times, samples per
-     second and instances per minute; every sampled energy is checked
+     pre_steps=2: the e02 point (128 walkers) on chimera512_synth_s1
+     (float64 once, float32 cold and three warm) and on the fleet of 8
+     (float64 once, float32 cold and warm), and 1024 walkers on
+     chimera-2048 (float32 and float64 with every draw examined), with
+     stage times, samples per second and instances per minute; every sampled energy is checked
      against ``energy_Jij`` of its state, the launches of K4 against one
      per site and of K1 against one per interface sweep step, and the
      float64 mean energy on s1 against the committed tnax sampling
      oracle (K4 runs the whole site step after the two GEMMs, so its
-     launches are the site loop's); the float32 fleet is printed beside
-     single runs on the same uniforms, and the examined passes print their
+     launches are the site loop's); the float32 fleet's first two
+     instances are printed beside single runs on the same uniforms, and
+     the examined passes print their
      draws from the uniform row (saturated or vanishing marginals) by
      cause: the float64 pass must have none;
   6. drives the low-energy spectrum through the Solver's entry points
@@ -64,11 +65,11 @@ Run from the root of a checkout on a machine with one CUDA card. It
      states, same sorted energies within 1e-9; whether the sets of states
      are equal is printed), and a float32 ee=1 gated on its lowest energy;
      chimera-2048 at bench.py's spectrum point (noise, the two-rung ladder,
-     ee=2, M=1024, D=32, cand_factor=64) in float32 cold and two warm and
-     in float64, gated on no merge overflow and a lowest energy within the
+     ee=2, M=1024, D=32, cand_factor=64) in float32 and in float64,
+     gated on no merge overflow and a lowest energy within the
      noise bound of the GS oracle, float64 also on two states within
      twice the bound; the 8 chimera-512 instances through
-     multi_search_spectrum (float32, ee=1, cand_factor=8) cold and warm,
+     multi_search_spectrum (float32, ee=1, cand_factor=8) once,
      each instance's lowest energy gated on its GS oracle. Every decoded
      energy is checked against ``energy_Jij`` of its state (1e-9), K2 and
      K3 against one launch per site and pass; stage times (ladder,
@@ -84,7 +85,14 @@ Run from the root of a checkout on a machine with one CUDA card. It
      float64 the host 'ud' against the device ladder (K1) at tnax's
      tolerances and 'ud' + 'lr' + the host search against the oracle;
      the boundary stacks (rhoT/B/L/R, the fat rhoT) and the MPS API on
-     the card against the CPU.
+     the card against the CPU;
+  9. drives the device mesh on torch.distributed (``mesh_phase``): a
+     (1, 1) NCCL mesh in this process, sharded_search_gs at chimera-2048
+     on phase 7's gauges against the oracle and multi_search_gs; then two
+     spawned gloo ranks on the one card: the beam-sharded search on
+     chimera-512 s1 against its oracle, the data-parallel fleet search
+     and sampler against no mesh, and the beam-sharded spectrum against
+     the chimera-128 spectrum oracle.
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before that line is printed. Without a CUDA card it fails.
@@ -570,7 +578,7 @@ def slice_run(tt, torch, J, oracle, dtype, label, cand_factor=8):
 def full_phase(tt, torch, J):
     """Phase 3, second part: the chimera-2048 search at the full expansion
     (cand_factor=None, the uncapped exact merge of tnax), float64 once and
-    float32 cold and three warm. Gates every energy on its recheck, the
+    float32 cold and warm. Gates every energy on its recheck, the
     merge on no overflow and on one K2 and one K3 launch per site, and the
     float64 energy on the committed tnax oracle of the full expansion."""
     with open(FULL_ORACLE) as f:
@@ -579,9 +587,7 @@ def full_phase(tt, torch, J):
     runs = {}
     for dtype, label in ((torch.float64, "full f64"),
                          (torch.float32, "full f32 cold"),
-                         (torch.float32, "full f32 warm 1"),
-                         (torch.float32, "full f32 warm 2"),
-                         (torch.float32, "full f32 warm 3")):
+                         (torch.float32, "full f32 warm")):
         runs[label] = slice_run(tt, torch, J, oracle, dtype, label,
                                 cand_factor=None)
         _, _, res, E, counts = runs[label]
@@ -596,9 +602,7 @@ def full_phase(tt, torch, J):
             check(E <= oracle["energy"] + 1e-6,
                   f"{label}: energy {E} above the full-expansion oracle "
                   f"{oracle['energy']}")
-    warm = [runs[f"full f32 warm {i}"][0] for i in (1, 2, 3)]
-    print(f"full f32 warm median {statistics.median(warm):.3f} s, spread "
-          f"{max(warm) - min(warm):.3f} s; count_max "
+    print(f"full f32 warm {runs['full f32 warm'][0]:.3f} s; count_max "
           f"{runs['full f64'][2]['count_max']} (oracle "
           f"{oracle['count_max']})", flush=True)
 
@@ -768,14 +772,13 @@ def sample_phase(tt, torch):
                   f"{lo:.6f}, search oracle {o:.6f}{note}", flush=True)
 
     out = {}
-    for group, Jg, seed in (("e02 single", Js[:1], 0),
-                            ("e02 fleet", Js, FLEET_SEED)):
+    for group, Jg, seed, n_warm in (("e02 single", Js[:1], 0, 3),
+                                    ("e02 fleet", Js, FLEET_SEED, 1)):
         runs = {}
-        for dtype, label in ((torch.float64, "f64"),
-                             (torch.float32, "f32 cold"),
-                             (torch.float32, "f32 warm 1"),
-                             (torch.float32, "f32 warm 2"),
-                             (torch.float32, "f32 warm 3")):
+        warm = [f"f32 warm {i}" for i in range(1, n_warm + 1)]
+        for dtype, label in ([(torch.float64, "f64"),
+                              (torch.float32, "f32 cold")]
+                             + [(torch.float32, w) for w in warm]):
             runs[label] = sample_run(tt, torch, Jg, 8, dtype,
                                      f"{group} {label}", E02_M, seed=seed)
             mean = gate_mean(f"{group} {label} s1", runs[label][2][0]
@@ -784,17 +787,18 @@ def sample_phase(tt, torch):
                 check(abs(mean - orc["mean"]) <= tol,
                       f"{group} f64: mean energy {mean} on s1 is more than "
                       f"{tol} from the tnax oracle {orc['mean']}")
-        lowest(group, runs["f32 warm 3"][2], search)
-        warm = [runs[f"f32 warm {i}"][0] for i in (1, 2, 3)]
-        med = statistics.median(warm)
+        lowest(group, runs[warm[-1]][2], search)
+        secs = [runs[w][0] for w in warm]
+        med = statistics.median(secs)
         print(f"{group} f32 warm median {med:.3f} s, spread "
-              f"{max(warm) - min(warm):.3f} s, "
+              f"{max(secs) - min(secs):.3f} s, "
               f"{len(Jg) * E02_M / med:.1f} samples/s, "
               f"{60 * len(Jg) / med:.2f} instances/min", flush=True)
         out[group] = runs
-    # the f32 fleet against single runs on the same uniforms (printed:
-    # batched cuSOLVER calls may round otherwise than single ones)
-    fleet_rs = out["e02 fleet"]["f32 warm 3"][2]
+    # the f32 fleet against single runs of its first two instances on the
+    # same uniforms (printed: batched cuSOLVER calls may round otherwise
+    # than single ones)
+    fleet_rs = out["e02 fleet"]["f32 warm 1"][2][:2]
     same, t0 = 0, time.perf_counter()
     for b, (J, rf) in enumerate(zip(Js, fleet_rs)):
         u = parallel.instance_uniforms(FLEET_SEED, b, (8, 8, E02_M),
@@ -807,23 +811,22 @@ def sample_phase(tt, torch):
               f"mean {float(r1['energy'].mean()):.6f} fleet "
               f"{float(rf['energy'].mean()):.6f}", flush=True)
     print(f"f32 e02 fleet vs single runs on the same uniforms: {same} of "
-          f"{len(Js)} instances agree in every walker; 8 single runs "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
-    # chimera-2048, 1024 walkers: a timed float32 pass, then float32 and
-    # float64 passes with every draw examined
+          f"{len(fleet_rs)} instances agree in every walker; "
+          f"{len(fleet_rs)} single runs {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    # chimera-2048, 1024 walkers: float32 and float64 passes with every
+    # draw examined
     J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(INSTANCE)), 1 / 75)
     with open(ORACLE) as f:
         E_gs = json.load(f)["energy"]
-    for dtype, label in ((torch.float32, "f32"),
-                         (torch.float32, "f32 examined"),
+    for dtype, label in ((torch.float32, "f32 examined"),
                          (torch.float64, "f64 examined")):
-        undo = (examine_draws(tt, torch, 16, f"chimera-2048 {label}")
-                if "examined" in label else None)
+        undo = examine_draws(tt, torch, 16, f"chimera-2048 {label}")
         try:
             r = sample_run(tt, torch, [J], 16, dtype,
                            f"chimera-2048 {label}", E2048_M)[2][0]
         finally:
-            uniform = undo() if undo else None
+            uniform = undo()
         print(f"  chimera-2048 {label}: mean energy "
               f"{float(r['energy'].mean()):.6f}, lowest sampled "
               f"{float(r['energy'].min()):.6f}, search oracle {E_gs:.6f}, "
@@ -835,7 +838,7 @@ def sample_phase(tt, torch):
             check(uniform == 0 and r["negative_probability"] > -1,
                   f"chimera-2048 {label}: {uniform} draws from the uniform "
                   f"row, negative_probability {r['negative_probability']}")
-    return out["e02 fleet"]["f32 warm 3"][3]
+    return out["e02 fleet"]["f32 warm 1"][3]
 
 
 def examine_draws(tt, torch, Nx, label):
@@ -995,10 +998,10 @@ def spectrum_phase(tt, torch):
     (a) chimera-128 in float64, exact-SVD zip-up, held to the committed
     tnax oracle (ee=1, and ee=2 after noise), then a float32 ee=1; (b)
     chimera-2048 at bench.py's spectrum point (noise, precondition, ee=2,
-    M=1024, D=32, cand_factor=64 with auto_grow), float32 cold and two
-    warm, then float64; (c) the fleet of 8 chimera-512 through
-    multi_search_spectrum, float32, ee=1, cold and warm. Returns the
-    launch counts of the last float32 chimera-2048 run."""
+    M=1024, D=32, cand_factor=64 with auto_grow), float32, then float64;
+    (c) the fleet of 8 chimera-512 through
+    multi_search_spectrum, float32, ee=1, once. Returns the
+    launch counts of the float32 chimera-2048 run."""
     import numpy as np
     with open(SPECTRUM_ORACLE) as f:
         orc = json.load(f)
@@ -1045,10 +1048,7 @@ def spectrum_phase(tt, torch):
     with open(ORACLE) as f:
         E_gs = json.load(f)["energy"]
     runs = {}
-    for dtype, label in ((torch.float32, "f32 cold"),
-                         (torch.float32, "f32 warm 1"),
-                         (torch.float32, "f32 warm 2"),
-                         (torch.float64, "f64")):
+    for dtype, label in ((torch.float32, "f32"), (torch.float64, "f64")):
         runs[label] = spectrum_run(
             tt, torch, J, 16, dtype, f"chimera-2048 {label}", ee=2, M=1024,
             Dmax=32, cand_factor=64, noise=True, precondition=True)
@@ -1065,9 +1065,6 @@ def spectrum_phase(tt, torch):
         if dtype == torch.float64:
             check(near >= 2, f"chimera-2048 {label}: {near} states within "
                   f"{2 * bound} of the lowest, the oracle's degeneracy is 2")
-    warm = [runs[f"f32 warm {i}"][0] for i in (1, 2)]
-    print(f"spectrum chimera-2048 f32 warm {warm[0]:.3f} / {warm[1]:.3f} s",
-          flush=True)
 
     # (c) the fleet of 8 chimera-512 through multi_search_spectrum
     Js, E_os = [], []
@@ -1076,36 +1073,35 @@ def spectrum_phase(tt, torch):
                                1 / 75))
         with open(base + "_oracle.json") as f:
             E_os.append(json.load(f)["energy"])
-    for label in ("cold", "warm"):
-        solvers = [tt.Solver(mode="Ising", Nx=8, Ny=8, Nc=8, J=Jb, beta=3,
-                             device="cuda", dtype=torch.float32)
-                   for Jb in Js]
-        stages = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rs = tt.multi_search_spectrum(
-            solvers, [s._context() for s in solvers], 1, M=1024,
-            relative_P_cutoff=1e-8, Dmax=32, max_dEng=1.0, cand_factor=8,
-            stage_times=stages)
-        for s, r in zip(solvers, rs):
-            s.set_result(r)
-            s.decode_low_energy_states(max_dEng=1.0)
-        seconds = time.perf_counter() - t0
-        print(f"spectrum fleet f32 {label}: {seconds:.3f} s for 8 "
-              f"chimera-512 ({60 * 8 / seconds:.2f} instances/min)  stages "
-              + " ".join(f"{k}={v:.3f}" for k, v in stages.items()),
-              flush=True)
-        for b, (s, Jb, E_o) in enumerate(zip(solvers, Js, E_os)):
-            err = float(abs(tt.energy_Jij(Jb, s.binary_states())
-                            - s.energy).max())
-            print(f"  s{b + 1}: {len(s.energy)} states, lowest "
-                  f"{s.energy[0]:.6f} (GS oracle {E_o:.6f}), merge_overflow "
-                  f"{s.merge_overflow}, recheck error {err:.3g}", flush=True)
-            check(err <= 1e-9, f"spectrum fleet s{b + 1}: decoded energies "
-                  f"differ from energy_Jij by {err}")
-            check(s.energy[0] <= E_o + 1e-6, f"spectrum fleet s{b + 1}: "
-                  f"lowest {s.energy[0]} above the GS oracle {E_o}")
-    return runs["f32 warm 2"][3]
+    solvers = [tt.Solver(mode="Ising", Nx=8, Ny=8, Nc=8, J=Jb, beta=3,
+                         device="cuda", dtype=torch.float32)
+               for Jb in Js]
+    stages = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs = tt.multi_search_spectrum(
+        solvers, [s._context() for s in solvers], 1, M=1024,
+        relative_P_cutoff=1e-8, Dmax=32, max_dEng=1.0, cand_factor=8,
+        stage_times=stages)
+    for s, r in zip(solvers, rs):
+        s.set_result(r)
+        s.decode_low_energy_states(max_dEng=1.0)
+    seconds = time.perf_counter() - t0
+    print(f"spectrum fleet f32: {seconds:.3f} s for 8 "
+          f"chimera-512 ({60 * 8 / seconds:.2f} instances/min)  stages "
+          + " ".join(f"{k}={v:.3f}" for k, v in stages.items()),
+          flush=True)
+    for b, (s, Jb, E_o) in enumerate(zip(solvers, Js, E_os)):
+        err = float(abs(tt.energy_Jij(Jb, s.binary_states())
+                        - s.energy).max())
+        print(f"  s{b + 1}: {len(s.energy)} states, lowest "
+              f"{s.energy[0]:.6f} (GS oracle {E_o:.6f}), merge_overflow "
+              f"{s.merge_overflow}, recheck error {err:.3g}", flush=True)
+        check(err <= 1e-9, f"spectrum fleet s{b + 1}: decoded energies "
+              f"differ from energy_Jij by {err}")
+        check(s.energy[0] <= E_o + 1e-6, f"spectrum fleet s{b + 1}: "
+              f"lowest {s.energy[0]} above the GS oracle {E_o}")
+    return runs["f32"][3]
 
 
 # ---------------------------------------------------------------------------
@@ -1165,7 +1161,7 @@ def gs_recheck(tt, J, ins, label):
 def solver_phase(tt, torch):
     """Phase 7: the Solver's own paths, through its methods only.
     (a) chimera-2048: precondition() then search_ground_state(path=
-    "device"), f32 cold + warm; (b) the same gauges, path="host", f32;
+    "device"), f32; (b) the same gauges, path="host", f32;
     (c) chimera-512 s1 in f64, the host search against the device search
     at the full expansion and the GS oracle; (d) e02 sampling on s1, both
     paths, f32 and f64, the f64 means against tnax's sampling oracle; (e)
@@ -1174,7 +1170,7 @@ def solver_phase(tt, torch):
     f32, both spectrum and search paths, with K2 and K3 against their
     plain versions at its widths; (g) save and load of (a)'s and (e)'s
     ee=2 results. Returns the launch counts of the f32 Solver runs on the
-    device path and on the host path."""
+    device path and on the host path, and (a)'s preconditioned Solver."""
     import tempfile
     import numpy as np
     from tnax_torch import kernels, search
@@ -1187,28 +1183,26 @@ def solver_phase(tt, torch):
     with open(ORACLE) as f:
         orc = json.load(f)
     gs_kw = dict(M=1024, relative_P_cutoff=1e-8, Dmax=32)
-    for label in ("f32 cold", "f32 warm"):
-        ins = tt.Solver(mode="Ising", Nx=16, Ny=16, Nc=8, J=J, beta=3,
-                        device="cuda", dtype=torch.float32)
+    ins = tt.Solver(mode="Ising", Nx=16, Ny=16, Nc=8, J=J, beta=3,
+                    device="cuda", dtype=torch.float32)
 
-        def run(stages):
-            ins.precondition(stage_times=stages)
-            ins.search_ground_state(path="device", stage_times=stages,
-                                    **gs_kw)
-        seconds, counts, stages = timed(torch, run)
-        E = gs_recheck(tt, J, ins, f"solver 2048 device {label}")
-        print(f"solver 2048 device {label}: {seconds:.3f} s  stages "
-              f"{fmt(stages)}  energy {ins.energy[0]:.6f} recheck {E:.6f} "
-              f"(f64 oracle {orc['energy']})  deg {ins.degeneracy}  "
-              f"merge_overflow {ins.merge_overflow}  launches {counts}",
-              flush=True)
-        for k in SEARCH_KERNELS:
-            check(counts[k] > 0, f"solver 2048 device {label}: kernel {k} "
-                  f"was not launched")
-        check(counts["merge"] == counts["marginal_epilogue"] == 256,
-              f"solver 2048 device {label}: K2/K3 launches {counts}, want "
-              f"one per site (256)")
-        solver.update({k: counts[k] for k in SEARCH_KERNELS})
+    def run(stages):
+        ins.precondition(stage_times=stages)
+        ins.search_ground_state(path="device", stage_times=stages, **gs_kw)
+    seconds, counts, stages = timed(torch, run)
+    E = gs_recheck(tt, J, ins, "solver 2048 device f32")
+    print(f"solver 2048 device f32: {seconds:.3f} s  stages "
+          f"{fmt(stages)}  energy {ins.energy[0]:.6f} recheck {E:.6f} "
+          f"(f64 oracle {orc['energy']})  deg {ins.degeneracy}  "
+          f"merge_overflow {ins.merge_overflow}  launches {counts}",
+          flush=True)
+    for k in SEARCH_KERNELS:
+        check(counts[k] > 0, f"solver 2048 device f32: kernel {k} was not "
+              f"launched")
+    check(counts["merge"] == counts["marginal_epilogue"] == 256,
+          f"solver 2048 device f32: K2/K3 launches {counts}, want one per "
+          f"site (256)")
+    solver.update({k: counts[k] for k in SEARCH_KERNELS})
     ins_a = ins
 
     # (b) host search at full size, on (a)'s gauges; the wait of each
@@ -1454,7 +1448,7 @@ def solver_phase(tt, torch):
                   f"other states")
     print(f"phase 7 (the Solver's own paths): "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    return solver, solver_host
+    return solver, solver_host, ins_a
 
 
 def rel_close(a, b, rtol):
@@ -1484,7 +1478,7 @@ def host_pre_phase(tt, torch):
     energy against its recheck; (c) chimera-512 s1 f64: the host 'ud'
     against the device ladder (K1) at tnax's tolerances, then 'ud' + 'lr'
     and the host search against the GS oracle; (d) build_rhoB/L/R (and T)
-    at chimera-512 f64 D=8, the fat build_rhoT at chimera-128 f64 D=16,
+    at chimera-128 f64 D=8, the fat build_rhoT there at D=16,
     on the card against the CPU through log2 Z at every row and column
     interface; (e) the MPS API on a chimera-2048 row (L=16, D=32, d=16),
     float64 and complex128, the card against the CPU. Returns the launch
@@ -1611,9 +1605,14 @@ def host_pre_phase(tt, torch):
     check(counts["marginal_epilogue"] == 64 and counts["gebal"] == 0,
           f"host pre 512 ud+lr: launches {counts}")
 
-    # (d) the boundary stacks on the card against the CPU
+    # (d) the boundary stacks on the card against the CPU, at chimera-128
+    # (the CPU's builds at chimera-512 took most of the phase's clock)
     t0 = time.perf_counter()
-    Wt = ins_c._context().Wt
+    J128 = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(os.path.join(
+        DATA, "chimera128_synth_s0.txt"))), 1 / 75)
+    s128 = tt.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J128, beta=3,
+                     device="cuda", dtype=torch.float64)
+    Wt = s128._context().Wt
     kw = dict(Dmax=8, tolS=1e-16, tolV=1e-10, max_sweeps=20)
     log2z = {}
     for dev in ("cuda", "cpu"):
@@ -1625,17 +1624,12 @@ def host_pre_phase(tt, torch):
     for i, name in enumerate(("rows (rhoT.rhoB)", "columns (rhoR.rhoL)")):
         ok, ratio = rel_close(log2z["cuda"][i], log2z["cpu"][i], 1e-9)
         z = log2z["cuda"][i].cpu()
-        print(f"host pre stacks 512 f64 D=8 {name}: log2 Z at "
+        print(f"host pre stacks 128 f64 D=8 {name}: log2 Z at "
               f"{z.numel()} interfaces, spread {float(z.max() - z.min()):.6g}"
               f" around {float(z.mean()):.9f}; card against CPU relative "
               f"{ratio:.3g}", flush=True)
-        check(ok, f"stacks 512 {name}: the card's log2 Z differ from the "
+        check(ok, f"stacks 128 {name}: the card's log2 Z differ from the "
               f"CPU's by {ratio} relative")
-    J128 = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(os.path.join(
-        DATA, "chimera128_synth_s0.txt"))), 1 / 75)
-    s128 = tt.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J128, beta=3,
-                     device="cuda", dtype=torch.float64)
-    Wt = s128._context().Wt
     kw = dict(Dmax=16, tolS=1e-16, tolV=1e-10, max_sweeps=20)
     fat = {}
     for dev in ("cuda", "cpu"):
@@ -1726,6 +1720,239 @@ def host_pre_phase(tt, torch):
     return total
 
 
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_rank(rank, port, out):
+    """One of phase 9's two gloo ranks, both on cuda:0 (see mesh_phase);
+    saves what the parent gates to out/rank<r>.pt."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import tnax_torch as tt
+    from tnax_torch import parallel, spectrum
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    res = {}
+
+    def solver512(s, dtype):
+        J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(FLEET[s] + ".txt")), 1 / 75)
+        return J, tt.Solver(mode="Ising", Nx=8, Ny=8, Nc=8, J=J, beta=3,
+                            device="cuda", dtype=dtype)
+
+    # (b1) (1, 2): the beam-sharded search on chimera-512 s1, float64
+    mesh = parallel.make_mesh(1, 2, devices=[dev, dev])
+    J1, ins = solver512(0, torch.float64)
+    ins.precondition()
+    ctx = ins._context()
+    kw = dict(M=1024, relative_P_cutoff=1e-8, Dmax=32, cand_factor=2)
+    out1 = []
+    seconds, counts, stages = timed(torch, lambda st: out1.append(
+        parallel.sharded_search_gs([ctx], mesh, stage_times=st, **kw)[0]))
+    r = out1[0]
+    ins.states = np.asarray(r["states"])[None, :][:, ins.order]
+    res["b1"] = dict(r, seconds=seconds, counts=counts, stages=stages,
+                     recheck=float(tt.energy_Jij(J1, ins.binary_states())[0]))
+    if rank == 0:
+        res["b1_single"] = parallel.device_search_gs(ctx, **kw)
+
+    # (b2) (2, 1): the data-parallel fleet search of s1-s8, float64
+    mesh = parallel.make_mesh(2, 1, devices=[dev, dev])
+    ctxs = [solver512(s, torch.float64)[1]._context() for s in range(8)]
+    kw = dict(M=256, relative_P_cutoff=1e-8, Dmax=16, cand_factor=2)
+    t0 = time.perf_counter()
+    res["b2"] = parallel.multi_search_gs(ctxs, mesh=mesh, **kw)
+    res["b2_seconds"] = time.perf_counter() - t0
+    if rank == 0:
+        res["b2_ref"] = parallel.multi_search_gs(ctxs, **kw)
+
+    # (b3) the data-parallel fleet sampler on s1-s4, float64
+    solvers = [solver512(s, torch.float64)[1] for s in range(4)]
+    kw = dict(M=128, Dmax=16, seed=FLEET_SEED)
+    t0 = time.perf_counter()
+    res["b3"] = tt.multi_flagship_sample(solvers, mesh=mesh, **kw)
+    res["b3_seconds"] = time.perf_counter() - t0
+    if rank == 0:
+        res["b3_ref"] = tt.multi_flagship_sample(solvers, **kw)
+
+    # (b4) (1, 2): the beam-sharded spectrum at the chimera-128 oracle's
+    # point, float64
+    mesh = parallel.make_mesh(1, 2, devices=[dev, dev])
+    with open(SPECTRUM_ORACLE) as f:
+        orc = json.load(f)
+    run = orc["runs"][0]
+    J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(os.path.join(
+        DATA, orc["instance"]))), 1 / 75)
+    ins = tt.Solver(mode="Ising", Nx=4, Ny=4, Nc=8, J=J, beta=orc["beta"],
+                    device="cuda", dtype=torch.float64)
+    out4 = []
+    seconds, counts, stages = timed(torch, lambda st: out4.append(
+        spectrum.sharded_search_spectrum(
+            ins, ins._context(), 1, mesh, M=orc["M"],
+            relative_P_cutoff=orc["relative_P_cutoff"],
+            max_dEng=orc["max_dEng"], Dmax=orc["Dmax"],
+            cand_factor=run["cand_factor"], zipup_rsvd=orc["zipup_rsvd"],
+            stage_times=st)))
+    ins.set_result(out4[0])
+    ins.decode_low_energy_states(max_dEng=orc["max_dEng"])
+    res["b4"] = dict(energy=ins.energy, states=ins.states,
+                     overflow=out4[0].merge_overflow, seconds=seconds,
+                     counts=counts, stages=stages,
+                     recheck=tt.energy_Jij(J, ins.binary_states()))
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def mesh_phase(tt, torch, ins_a):
+    """Phase 9: the device mesh ('data' over instances, 'beam' over a
+    search's branches) on torch.distributed.
+    (a) NCCL, a (1, 1) mesh in this process: sharded_search_gs at
+    chimera-2048 f32 (M=1024, D=32, cutoff 1e-8, cand_factor 8) on phase
+    7's preconditioned Solver ``ins_a``, gated on the oracle (energy and
+    degeneracy) and on the states of multi_search_gs on the same context;
+    (b) two spawned gloo ranks, both on cuda:0 (NCCL takes one rank per
+    card; gloo's collectives go through host memory): (b1) a (1, 2)
+    sharded_search_gs on chimera-512 s1 f64 against its oracle; (b2) a
+    (2, 1) multi_search_gs(mesh=) of the fleet of 8 (f64, M=256, D=16)
+    against no mesh; (b3) multi_flagship_sample(mesh=) of s1-s4 (f64,
+    M=128, D=16) bit for bit against no mesh; (b4) a (1, 2)
+    sharded_search_spectrum at the chimera-128 spectrum oracle's point
+    against the oracle. Returns the launch counts of (a)."""
+    import tempfile
+    import numpy as np
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from tnax_torch import parallel
+    t_phase = time.perf_counter()
+    with open(ORACLE) as f:
+        orc = json.load(f)
+    J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(INSTANCE)), 1 / 75)
+
+    # (a) NCCL (1, 1) in this process
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = parallel.make_mesh(1, 1)
+        ctx = ins_a._context()
+        kw = dict(M=1024, relative_P_cutoff=1e-8, Dmax=32, cand_factor=8)
+        got = []
+        seconds, counts, stages = timed(torch, lambda st: got.append(
+            parallel.sharded_search_gs([ctx], mesh, stage_times=st,
+                                       **kw)[0]))
+        want = parallel.multi_search_gs([ctx], **kw)[0]
+    finally:
+        dist.destroy_process_group()
+    r = got[0]
+    ins_a.states = np.asarray(r["states"])[None, :][:, ins_a.order]
+    E = float(tt.energy_Jij(J, ins_a.binary_states())[0])
+    print(f"mesh (a) NCCL (1, 1) sharded_search_gs chimera-2048 f32: "
+          f"{seconds:.3f} s  stages {fmt(stages)}  energy {r['energy']:.6f} "
+          f"recheck {E:.6f} deg {r['degeneracy']} (oracle {orc['energy']}, "
+          f"deg {orc['degeneracy']})  merge_overflow {r['merge_overflow']}  "
+          f"the states of multi_search_gs: "
+          f"{np.array_equal(r['states'], want['states'])}  launches "
+          f"{counts}", flush=True)
+    check(abs(E - orc["energy"]) <= 1e-6 and r["degeneracy"]
+          == orc["degeneracy"], f"mesh (a): energy {E} deg "
+          f"{r['degeneracy']}, the oracle's {orc['energy']} deg "
+          f"{orc['degeneracy']}")
+    check(np.array_equal(r["states"], want["states"])
+          and r["degeneracy"] == want["degeneracy"],
+          "mesh (a): the sharded search and multi_search_gs differ")
+    check(counts["merge"] == counts["marginal_epilogue"] == 256,
+          f"mesh (a): K2/K3 launches {counts}, want one per site (256)")
+
+    # (b) two gloo ranks on cuda:0
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(mesh_rank, args=(free_port(), out),
+                                 nprocs=2, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > 600:
+                    for p in ctx.processes:
+                        p.kill()
+                    fail("mesh (b): the gloo ranks ran past 600 s")
+        except mp.ProcessRaisedException as e:
+            fail(f"mesh (b): a gloo rank raised:\n{e}")
+        except mp.ProcessExitedException as e:
+            fail(f"mesh (b): a gloo rank exited: {e}")
+        ranks = [torch.load(os.path.join(out, f"rank{k}.pt"),
+                            weights_only=False) for k in range(2)]
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    with open(FLEET[0] + "_oracle.json") as f:
+        orc1 = json.load(f)
+    for k, rk in enumerate(ranks):
+        b1 = rk["b1"]
+        print(f"mesh (b1) gloo (1, 2) rank {k} sharded_search_gs chimera-512 "
+              f"s1 f64: {b1['seconds']:.3f} s  stages {fmt(b1['stages'])}  "
+              f"recheck {b1['recheck']:.9f} deg {b1['degeneracy']} (oracle "
+              f"{orc1['energy']}, deg {orc1['degeneracy']})  launches "
+              f"{b1['counts']}", flush=True)
+        check(abs(b1["recheck"] - b1["energy"]) <= 1e-9
+              and b1["recheck"] <= orc1["energy"] + 1e-9,
+              f"mesh (b1) rank {k}: energy {b1['energy']} recheck "
+              f"{b1['recheck']}, oracle {orc1['energy']}")
+        check(np.array_equal(b1["states"], r0["b1"]["states"]),
+              "mesh (b1): the ranks return other states")
+        check(b1["counts"]["merge"] == b1["counts"]["marginal_epilogue"]
+              == 64, f"mesh (b1) rank {k}: K2/K3 launches {b1['counts']}, "
+              f"want one per site (64)")
+    s1 = r0["b1_single"]
+    print(f"  (b1) unsharded device_search_gs on rank 0's context: energy "
+          f"{s1['energy']:.9f} deg {s1['degeneracy']}, the same state: "
+          f"{np.array_equal(s1['states'], r0['b1']['states'])}", flush=True)
+    same = all(np.array_equal(a["states"], b["states"])
+               and a["degeneracy"] == b["degeneracy"]
+               and abs(a["energy"] - b["energy"]) <= 1e-9
+               for rk in ranks for a, b in zip(rk["b2"], r0["b2_ref"]))
+    print(f"mesh (b2) gloo (2, 1) multi_search_gs(mesh=) fleet of 8 f64: "
+          f"{r0['b2_seconds']:.3f} s, equal to no mesh: {same}", flush=True)
+    check(same and len(r0["b2"]) == 8,
+          "mesh (b2): the data mesh's results differ from no mesh")
+    same = all(np.array_equal(a["states"], b["states"])
+               and np.array_equal(a["energy"], b["energy"])
+               for rk in ranks for a, b in zip(rk["b3"], r0["b3_ref"]))
+    print(f"mesh (b3) gloo (2, 1) multi_flagship_sample(mesh=) s1-s4 f64: "
+          f"{r0['b3_seconds']:.3f} s, bit for bit the states of no mesh: "
+          f"{same}", flush=True)
+    check(same and len(r0["b3"]) == 4,
+          "mesh (b3): the data mesh's samples differ from no mesh")
+    with open(SPECTRUM_ORACLE) as f:
+        run = json.load(f)["runs"][0]
+    for k, rk in enumerate(ranks):
+        b4 = rk["b4"]
+        E_o = np.asarray(run["energies"])
+        ok = len(b4["energy"]) == len(E_o) and bool(
+            np.abs(np.sort(b4["energy"]) - np.sort(E_o)).max() <= 1e-9)
+        set_same = ok and all(np.array_equal(a, b) for a, b in zip(
+            sorted_pairs(b4["energy"], b4["states"]),
+            sorted_pairs(E_o, run["states"])))
+        err = float(abs(b4["recheck"] - b4["energy"]).max())
+        print(f"mesh (b4) gloo (1, 2) rank {k} sharded_search_spectrum "
+              f"chimera-128 f64: {b4['seconds']:.3f} s  stages "
+              f"{fmt(b4['stages'])}  {len(b4['energy'])} states (oracle "
+              f"{len(E_o)}), merge_overflow {b4['overflow']}, recheck error "
+              f"{err:.3g}, the oracle's set of states: {set_same}  launches "
+              f"{b4['counts']}", flush=True)
+        check(ok and err <= 1e-9 and b4["overflow"] == 0,
+              f"mesh (b4) rank {k}: the decoded spectrum differs from the "
+              f"tnax oracle's")
+        check(b4["counts"]["merge"] == b4["counts"]["marginal_epilogue"]
+              == 16, f"mesh (b4) rank {k}: K2/K3 launches {b4['counts']}, "
+              f"want one per site (16)")
+    print(f"phase 9 (the device mesh): {time.perf_counter() - t_phase:.1f} s "
+          f"(the gloo ranks {spawn_s:.1f} s)", flush=True)
+    return counts
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "tnax_torch")):
         fail("no tnax_torch package beside chip_smoke.py")
@@ -1796,10 +2023,13 @@ def main():
     spectrum = spectrum_phase(tt, torch)
 
     # phase 7: the Solver's own paths
-    solver, solver_host = solver_phase(tt, torch)
+    solver, solver_host, ins_a = solver_phase(tt, torch)
 
     # phase 8: the host preconditioner and the MPS API
     host_pre = host_pre_phase(tt, torch)
+
+    # phase 9: the device mesh
+    mesh = mesh_phase(tt, torch, ins_a)
 
     # summary: kernel numbers in float32 at the fleet's shapes; launches
     # of the last f32 fleet batch of the path that runs the kernel (the
@@ -1832,7 +2062,8 @@ def main():
                             launches_solver=solver[name],
                             launches_solver_host=solver_host[name],
                             launches_host_pre_2048=host_pre[2048][name],
-                            launches_host_pre_512=host_pre[512][name]))
+                            launches_host_pre_512=host_pre[512][name],
+                            launches_mesh=mesh[name]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"imports", flush=True)
     print(smi, flush=True)

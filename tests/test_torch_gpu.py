@@ -681,3 +681,32 @@ def test_complex_mps_canonizes_on_the_card(cuda):
                                atol=1e-12)
     torch.testing.assert_close(got["cuda"][1], got["cpu"][1], rtol=1e-10,
                                atol=0)
+
+
+@pytest.mark.gpu
+def test_nccl_mesh_of_one_card_matches_no_mesh(cuda):
+    """sharded_search_gs on a (1, 1) NCCL mesh (the beam-sharded site
+    body, its collectives on an axis of one rank) gives the unsharded
+    search's result at chimera-128, and K2 and K3 run once a site."""
+    import socket
+    import torch.distributed as dist
+    from tnax_torch import parallel
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = parallel.make_mesh(1, 1)
+        ctx = _chimera128(torch.float64)._context()
+        kw = dict(M=256, relative_P_cutoff=1e-8, Dmax=16)
+        kernels.reset_launch_counts()
+        got = parallel.sharded_search_gs([ctx], mesh, **kw)[0]
+        counts = kernels.launch_counts()
+        want = parallel.multi_search_gs([ctx], **kw)[0]
+    finally:
+        dist.destroy_process_group()
+    assert counts["merge"] == counts["marginal_epilogue"] == 16
+    assert got["energy"] == want["energy"]
+    assert got["degeneracy"] == want["degeneracy"]
+    assert np.array_equal(got["states"], want["states"])

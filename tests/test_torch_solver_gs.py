@@ -318,7 +318,7 @@ def test_context_functions_take_tnax_keywords():
     a = parallel.device_search_gs(ins._context(), fused=False, **small)
     b = parallel.device_search_gs(ins._context(), fused=True, **small)
     assert np.array_equal(a["states"], b["states"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="make_mesh"):
         parallel.multi_search_gs([ins._context()], mesh="data", **small)
     with pytest.raises(ValueError, match="one instance"):
         parallel.device_search_gs(tt.search.ContractionContext([ins, ins]),

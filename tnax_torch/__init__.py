@@ -43,6 +43,15 @@ ladder, the boundary and the search or sampling pass in one call,
 ``parallel.flagship_search_gs``, ``flagship_sample`` and their ``multi_``
 forms).
 
+tnax's device mesh runs on ``torch.distributed``, one process per rank
+(``tnax_torch.mesh``; ``parallel.make_mesh``): 'data' shards a fleet's
+instances (``mesh=`` of ``parallel.multi_search_gs`` and
+``multi_flagship_sample``), 'beam' the branches of one search
+(``parallel.sharded_search_gs``, ``spectrum.sharded_search_spectrum``).
+``tnax_torch.profiling`` traces with ``torch.profiler`` and times phases;
+the ``"tnax_torch"`` logger reports each row; ``tnax_torch.examples``
+holds tnax's example scripts e01-e07.
+
 Solvers run on CUDA in float32 unless given ``device`` and ``dtype``
 (``device="cpu"`` runs the plain versions in float64). Four device
 functions are hand-written CUDA C++ kernels (``tnax_torch.kernels``): K1

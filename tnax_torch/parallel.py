@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from . import engine
+from . import mesh as _mesh
 from . import precondition as pre
 from .bmps import check_rsvd
 from .config import StageClock
@@ -192,7 +193,7 @@ def _compact_candidates(probf, pmax, log2_cutoff, C):
 
 
 def site_step(beam, site, *, M, nx, bits, min_dEng, log2_cutoff, C,
-              col=None, records=False, compact=False):
+              col=None, records=False, compact=False, axis=None):
     """One lattice site of the beam search of B instances, the body that
     :func:`row_step` and :func:`row_records_prog` share: the marginals
     (kernel K3 in the epilogue), each instance's relative cutoff, the
@@ -218,17 +219,30 @@ def site_step(beam, site, *, M, nx, bits, min_dEng, log2_cutoff, C,
     flagged ones (compact), and disc = the first value dropped by the
     cutoff or the cap.
 
+    ``axis`` (a ``mesh.MeshAxis``, tnax's 'beam' axis) shards the M
+    branches over its n ranks (tnax parallel.py:226-470, :573-790): the
+    beam holds this rank's M/n branches (aidx global row-start ids into
+    the RRs of all M), the cutoff and the core window take the global
+    pmax, each rank takes its local top C (the caller's per-rank cap) and
+    the merge runs on every rank over the candidates of all ranks,
+    gathered rank-major, with the parents' rows gathered for key1 and
+    the winners; the rank keeps its M/n slice of the output. count, disc
+    and mq stay local (the caller reduces them); mqc is taken with the
+    global bmax.
+
     Returns (beam', dec): dec holds (B, ...) tensors of the decisions, src
     and indc (B, C) each candidate's parent slot and state, vals (B, C)
     its log2-probability, slot (B, C) the output slot it merged into (-1:
-    none), rep (B, M) each slot's representative candidate, count, disc,
-    disc_m (the largest group the top-M cut dropped), mq and mqc (B,).
+    none), rep (B, M) each slot's representative candidate, out_prob and
+    out_valid (B, M) the merged beam's, count, disc, disc_m (the largest
+    group the top-M cut dropped), mq and mqc (B,). With ``axis`` the
+    candidates (C) are all ranks' and src holds global parent ids.
     """
     B, Np = site["lBT"].shape[0], site["lBT"].shape[-1]
-    N = M * Np
     kb = (M - 1).bit_length() + 2 * bits + 1
     RL, vind, Eng, prob, valid, aidx = (
         beam[k] for k in ("RL", "vind", "Eng", "prob", "valid", "aidx"))
+    N = RL.shape[1] * Np
     dev = RL.device
     take = engine._take
     AT = site["AT"]
@@ -243,9 +257,17 @@ def site_step(beam, site, *, M, nx, bits, min_dEng, log2_cutoff, C,
         + take(site["Esu"].transpose(1, 2), uidx)
     # the epilogue (K3) also takes the site's reductions: pmax, and the
     # negativeness of live (mq) and of core branches (mqc)
-    probf, _, pmax, mq, mqc = engine.marginal_probf(
+    probf, mPn, pmax, mq, mqc = engine.marginal_probf(
         site["lBT"], site["drindex"], AT, RL, RRsel, lidx, uidx,
         site["nvalid"], prob, valid, log2_cutoff)
+    if axis is not None:
+        if compact:
+            raise ValueError("the sharded site takes the topk candidates")
+        # the global pmax and best branch; K3's mqc used the local one
+        bmax = torch.where(valid, prob, NEG).amax(dim=1)
+        pmax, bmax = _mesh.pmax(torch.stack([pmax, bmax]), axis)
+        core = valid & (prob > (bmax + log2_cutoff)[:, None])
+        mqc = torch.where(core, mPn, 0.0).amin(dim=1)
     neg = torch.full((B,), NEG, dtype=probf.dtype, device=dev)
     if compact:
         vals_c, idx_c, count, disc = _compact_candidates(probf, pmax,
@@ -278,8 +300,23 @@ def site_step(beam, site, *, M, nx, bits, min_dEng, log2_cutoff, C,
             | ((vals_c == pmax[:, None]) & live)
     src = idx_c // Np
     indc = idx_c % Np
-
     E_cand = Einc.reshape(B, N).gather(1, idx_c)
+    parents = {k: beam[k] for k in ("vind", "RL", "aidx", "deg", "states")
+               if k in beam}
+    rows = slice(None)
+    if axis is not None:
+        # every rank's candidates, rank-major, with global parent ids, and
+        # the parents of all ranks (vind-unique over the whole beam, so
+        # key1 below stays exact); then this rank's slice of the merge
+        src = src + axis.index * beam["RL"].shape[1]
+        vals_c, E_cand, indc, cvalid, src = (
+            _mesh.all_gather(x, axis, dim=1)
+            for x in (vals_c, E_cand, indc, cvalid, src))
+        parents = {k: _mesh.all_gather(v, axis, dim=1)
+                   for k, v in parents.items()}
+        rows = axis.block(M)
+    vind = parents["vind"]
+
     d_c, r_c = dmap.gather(1, indc), rmap.gather(1, indc)
     vind_c = take(vind, src)
     vind_c[:, :, nx] = d_c.to(vind.dtype)
@@ -302,24 +339,27 @@ def site_step(beam, site, *, M, nx, bits, min_dEng, log2_cutoff, C,
         key1 = ((gid.gather(1, src) << (2 * bits + 1))
                 | (d_c << (bits + 1)) | (r_c << 1)
                 | (1 - cvalid.long())).to(torch.int32)
-    deg = beam.get("deg")
+    deg = parents.get("deg")
     deg_c = torch.ones_like(src) if deg is None else deg.gather(1, src)
     slot, rep, prob_o, Eng_o, valid_o, disc_m, deg_o = merge_candidates(
         vind_c, E_cand, vals_c, cvalid, min_dEng, bits, M, deg_c, key1=key1,
         key_bits=kb)
-    bsrc = src.gather(1, rep)
-    vind_o = take(vind_c, rep)
-    out = dict(RL=engine.rl_update(take(RL, bsrc), AT, vind_o[:, :, nx]),
-               vind=vind_o, Eng=Eng_o, prob=prob_o, valid=valid_o,
-               aidx=aidx.gather(1, bsrc))
+    rep_o = rep[:, rows]
+    bsrc = src.gather(1, rep_o)
+    vind_o = take(vind_c, rep_o)
+    out = dict(RL=engine.rl_update(take(parents["RL"], bsrc), AT,
+                                   vind_o[:, :, nx]),
+               vind=vind_o, Eng=Eng_o[:, rows], prob=prob_o[:, rows],
+               valid=valid_o[:, rows], aidx=parents["aidx"].gather(1, bsrc))
     if deg is not None:
-        out["deg"] = deg_o
-    if "states" in beam:
-        states = take(beam["states"], bsrc)
-        states[:, :, col] = indc.gather(1, rep).to(states.dtype)
+        out["deg"] = deg_o[:, rows]
+    if "states" in parents:
+        states = take(parents["states"], bsrc)
+        states[:, :, col] = indc.gather(1, rep_o).to(states.dtype)
         out["states"] = states
     dec = dict(src=src, indc=indc, vals=vals_c, slot=slot, rep=rep,
-               count=count, disc=disc, disc_m=disc_m, mq=mq, mqc=mqc)
+               out_prob=prob_o, out_valid=valid_o, count=count, disc=disc,
+               disc_m=disc_m, mq=mq, mqc=mqc)
     return out, dec
 
 
@@ -335,7 +375,8 @@ def _shift_vind(vind):
                      dim=2)
 
 
-def row_step(beam, row, *, M, Nx, bits, min_dEng, log2_cutoff, cand=None):
+def row_step(beam, row, *, M, Nx, bits, min_dEng, log2_cutoff, cand=None,
+             axis=None):
     """Process one full lattice row of the beam search of B instances on
     the device: :func:`site_step` for every site, with the search's
     diagnostics.
@@ -354,24 +395,36 @@ def row_step(beam, row, *, M, Nx, bits, min_dEng, log2_cutoff, cand=None):
     ``cand=None`` is the full M*Np expansion. Every instance has its own
     cutoff, counts and diagnostics. Returns (beam', aux) with aux =
     dict(mq, mqc, pd, ovf, cmax) of (B,) device tensors (no host sync).
+
+    ``axis`` (tnax's 'beam' axis, a ``mesh.MeshAxis`` of n ranks) shards
+    the branches as tnax's ``row_step(axis=...)`` does: the beam holds
+    this rank's M/n branches, aidx their global ids into RRs of all M;
+    each rank takes C_local = min(max(1, C // n), (M/n)*Np) candidates a
+    site; a site overflows when any rank truncated, cmax is the largest
+    summed count, and aux is the same on every rank.
     """
     Np = row["lBT"].shape[-1]
     C = min(cand if cand is not None else M * Np, M * Np)
+    if axis is not None:
+        C = min(max(1, C // axis.size), (M // axis.size) * Np)
     decs = []
     for nx in range(Nx):
         beam, dec = site_step(beam, _site(row, nx), M=M, nx=nx, bits=bits,
                               min_dEng=min_dEng, log2_cutoff=log2_cutoff,
-                              C=C, col=row["cols"][nx])
+                              C=C, col=row["cols"][nx], axis=axis)
         decs.append(dec)
     beam = dict(beam, vind=_shift_vind(beam["vind"]))
 
     def over_sites(k):
         return torch.stack([d[k] for d in decs], 1)
-    aux = dict(mq=over_sites("mq").amin(1), mqc=over_sites("mqc").amin(1),
-               pd=torch.maximum(over_sites("disc"),
-                                over_sites("disc_m")).amax(1),
-               ovf=(over_sites("count") > C).sum(1),
-               cmax=over_sites("count").amax(1))
+    count = over_sites("count")
+    aux = dict(mq=_mesh.pmin(over_sites("mq").amin(1), axis),
+               mqc=_mesh.pmin(over_sites("mqc").amin(1), axis),
+               pd=_mesh.pmax(torch.maximum(over_sites("disc"),
+                                           over_sites("disc_m")).amax(1),
+                             axis),
+               ovf=_mesh.pmax((count > C).long(), axis).sum(1),
+               cmax=_mesh.psum(count, axis).amax(1))
     return beam, aux
 
 
@@ -379,26 +432,42 @@ _AUX_REDUCE = dict(mq=torch.amin, mqc=torch.amin, pd=torch.amax,
                    ovf=torch.sum, cmax=torch.amax)
 
 
-def _row_inputs(grid_in, rhoT, Wt, beam, ny):
+def _right_envs(AT_row, Wt_row, vind, axis=None):
+    """The row-start right environments (B, Nx, M, D, lh) of every
+    branch; with a beam ``axis`` each rank computes its own branches' and
+    gathers all M, the same on every rank."""
+    RRs = engine.row_right_envs(AT_row, Wt_row, vind[:, :, 1:])
+    return _mesh.all_gather(RRs, axis, dim=2)
+
+
+def _row_inputs(grid_in, rhoT, Wt, beam, ny, axis=None):
     """Row ny's per-site stacks from the search's (B, Ny, ...) inputs,
     with the boundary below the row and every branch's right
     environments."""
     row = {k: v[ny] if k == "cols" else v[:, ny] for k, v in grid_in.items()}
     row.update(AT=rhoT[:, ny + 1],
-               RRs=engine.row_right_envs(rhoT[:, ny + 1], Wt[:, ny],
-                                         beam["vind"][:, :, 1:]))
+               RRs=_right_envs(rhoT[:, ny + 1], Wt[:, ny], beam["vind"],
+                               axis))
     return row
 
 
+def _beam_ids(B, M, device, axis=None):
+    """The row-start ids of a beam of M branches (B, M), or of this
+    rank's block of them on a beam ``axis``."""
+    ids = torch.arange(M, device=device).expand(B, M)
+    return ids if axis is None else ids[:, axis.block(M)]
+
+
 def full_search_scan(beam0, grid_in, rhoT, Wt, *, M, Nx, bits, min_dEng,
-                     log2_cutoff, cand=None):
+                     log2_cutoff, cand=None, axis=None):
     """The whole ground-state search of B instances: per lattice row, the
     right environments of every branch, then :func:`row_step`'s site loop.
 
     grid_in: dict of (B, Ny, ...) stacks lBT, drindex, Es, Esl, Esu,
     dmap, rmap, nvalid (B, Ny, Nx) on the device (as :func:`row_step`
     takes them), and the host list cols (Ny, Nx). rhoT (B, Ny+1, Nx, D,
-    lv, D), Wt (B, Ny, Nx, lh, lv, lh, lv).
+    lv, D), Wt (B, Ny, Nx, lh, lv, lh, lv). With a beam ``axis`` beam0 is
+    this rank's block of the branches (see :func:`row_step`).
     Returns (beam, aux) with aux reduced over rows, per instance.
     """
     B, D = rhoT.shape[0], rhoT.shape[3]
@@ -406,12 +475,12 @@ def full_search_scan(beam0, grid_in, rhoT, Wt, *, M, Nx, bits, min_dEng,
     beam = dict(beam0)
     auxs = []
     for ny in range(Ny):
-        beam["aidx"] = torch.arange(M, device=rhoT.device).expand(B, M)
-        beam["RL"] = _unit_rows(B, M, D, rhoT)
-        row = _row_inputs(grid_in, rhoT, Wt, beam, ny)
+        beam["aidx"] = _beam_ids(B, M, rhoT.device, axis)
+        beam["RL"] = _unit_rows(B, beam["aidx"].shape[1], D, rhoT)
+        row = _row_inputs(grid_in, rhoT, Wt, beam, ny, axis)
         beam, aux = row_step(beam, row, M=M, Nx=Nx, bits=bits,
                              min_dEng=min_dEng, log2_cutoff=log2_cutoff,
-                             cand=cand)
+                             cand=cand, axis=axis)
         auxs.append(aux)
     aux = {k: fn(torch.stack([a[k] for a in auxs], 1), 1)
            for k, fn in _AUX_REDUCE.items()}
@@ -490,7 +559,8 @@ def record_views(buf, layout):
 
 
 def row_records_prog(beam, row, AT_row, Wt_row, *, M, C, Nx, bits, min_dEng,
-                     log2_cutoff, P=None, select="topk", rec=None):
+                     log2_cutoff, P=None, select="topk", rec=None,
+                     axis=None):
     """One lattice row of the search of B instances, emitting per-site
     decision records (tnax's ``row_records_prog`` / ``_records_row_core``,
     parallel.py:534-790, with the instance axis): every beam decision is
@@ -510,6 +580,14 @@ def row_records_prog(beam, row, AT_row, Wt_row, *, M, C, Nx, bits, min_dEng,
     Writes the fields of :data:`RECORD_FIELDS` into ``rec`` (views (B,
     Nx, ...), e.g. :func:`record_views` of a row buffer; allocated if
     None). Returns (beam', rec).
+
+    ``axis`` (tnax's 'beam' axis of n ranks, ``_records_row_core`` with
+    its axis; C a multiple of n, ValueError otherwise) shards the
+    branches: the beam holds this rank's M/n branches, each rank takes its
+    top C/n candidates (the "topk" order), and the records, built after
+    the gathers with global parent ids, the summed count (raised to C+1
+    where any rank truncated) and the global disc_cut, minP and
+    minP_core, are the same on every rank.
     """
     if select not in ("topk", "compact"):
         raise ValueError(f"records select 'topk' or 'compact', got "
@@ -517,22 +595,35 @@ def row_records_prog(beam, row, AT_row, Wt_row, *, M, C, Nx, bits, min_dEng,
     B, D = AT_row.shape[0], AT_row.shape[2]
     dev = AT_row.device
     P = C if P is None else min(P, C)
+    Cl = C
+    if axis is not None:
+        if C % axis.size:
+            raise ValueError(f"C={C} does not tile the beam axis "
+                             f"({axis.size})")
+        Cl = max(1, C // axis.size)
     if rec is None:
         layout = record_layout(B, Nx, M, P)
         rec = record_views(torch.empty(layout[0], dtype=torch.uint8,
                                        device=dev), layout)
-    beam = dict(beam, RL=_unit_rows(B, M, D, AT_row),
-                aidx=torch.arange(M, device=dev).expand(B, M))
+    aidx = _beam_ids(B, M, dev, axis)
+    beam = dict(beam, RL=_unit_rows(B, aidx.shape[1], D, AT_row), aidx=aidx)
     row = dict(row, AT=AT_row,
-               RRs=engine.row_right_envs(AT_row, Wt_row,
-                                         beam["vind"][:, :, 1:]))
+               RRs=_right_envs(AT_row, Wt_row, beam["vind"], axis))
     pos = torch.arange(C, device=dev).expand(B, C)
     for nx in range(Nx):
         beam, dec = site_step(beam, _site(row, nx), M=M, nx=nx, bits=bits,
                               min_dEng=min_dEng, log2_cutoff=log2_cutoff,
-                              C=C, records=True,
-                              compact=select == "compact")
-        slot, valid = dec["slot"], beam["valid"]
+                              C=Cl, records=True,
+                              compact=select == "compact", axis=axis)
+        if axis is not None:
+            trunc = _mesh.pmax((dec["count"] > Cl).long(), axis) > 0
+            count = _mesh.psum(dec["count"], axis)
+            dec.update(count=torch.where(trunc, torch.clamp(count, min=C + 1),
+                                         count),
+                       disc=_mesh.pmax(dec["disc"], axis),
+                       mq=_mesh.pmin(dec["mq"], axis),
+                       mqc=_mesh.pmin(dec["mqc"], axis))
+        slot, valid = dec["slot"], dec["out_valid"]
         # compaction: the merged candidates (slot >= 0) first, by slot;
         # the sort is stable, so a slot keeps the candidates' order
         full = torch.sort(torch.where(slot >= 0, slot, C), dim=1,
@@ -545,7 +636,7 @@ def row_records_prog(beam, row, AT_row, Wt_row, *, M, C, Nx, bits, min_dEng,
                         ("indc", dec["indc"].gather(1, tk)),
                         ("slot", slot.gather(1, tk)), ("rep", rep),
                         ("cprob", _f32(dec["vals"].gather(1, tk))),
-                        ("out_prob", _f32(beam["prob"])),
+                        ("out_prob", _f32(dec["out_prob"])),
                         ("out_valid", valid),
                         ("n_valid", (slot >= 0).sum(dim=1)),
                         ("count", dec["count"]),
@@ -633,10 +724,13 @@ def multi_search_gs(ctxs, M=2 ** 10, relative_P_cutoff=1e-6, min_dEng=1e-12,
     merge candidate set at ``cand_factor*M`` (None = the full M*Np
     expansion, the uncapped exact merge; kernel K2 takes any cap).
     ``select`` is "topk" or "sort" (the same selection);
-    ``graduate_truncation`` has no effect on the zip-up; ``mesh`` (several
-    devices) is not ported: NotImplementedError unless None.
-    ``stage_times``, if a dict, receives the seconds of the boundary (when
-    built here) and of the search.
+    ``graduate_truncation`` has no effect on the zip-up. With ``mesh``
+    (``make_mesh``; every rank passes all the contexts) the instances
+    shard over its 'data' axis, pure data parallelism as tnax's: the first
+    beam rank of each data group searches its block of len(ctxs) /
+    n_data instances (ValueError unless they tile the axis), and every
+    rank returns the results of all. ``stage_times``, if a dict, receives
+    the seconds of the boundary (when built here) and of the search.
 
     Returns a list with one dict(energy, states, prob, degeneracy,
     negative_probability, negative_probability_core,
@@ -644,8 +738,18 @@ def multi_search_gs(ctxs, M=2 ** 10, relative_P_cutoff=1e-6, min_dEng=1e-12,
     tnax does; ``energy`` is the beam's float64 energy.
     """
     if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported: the fleet "
-                                  "runs on one card")
+        ctxs = list(ctxs)
+        block = _mesh.check_mesh(mesh).block(len(ctxs), "data")
+        local = None
+        if mesh.index("beam") == 0:
+            local = multi_search_gs(
+                ctxs[block], M=M, relative_P_cutoff=relative_P_cutoff,
+                min_dEng=min_dEng, Dmax=Dmax, tolS=tolS, tolV=tolV,
+                max_sweeps=max_sweeps,
+                graduate_truncation=graduate_truncation,
+                cand_factor=cand_factor, select=select,
+                zipup_rsvd=zipup_rsvd, omega=omega, stage_times=stage_times)
+        return _mesh.gather_data(local, mesh)
     ctx = ContractionContext.stack(list(ctxs))
     _check_select(select)
     check_rsvd(zipup_rsvd)
@@ -665,12 +769,19 @@ def multi_search_gs(ctxs, M=2 ** 10, relative_P_cutoff=1e-6, min_dEng=1e-12,
                                  min_dEng=min_dEng, log2_cutoff=log2_cutoff,
                                  cand=cand)
     clock.lap("search")
-    # one pull of the final beams and diagnostics
+    return _assemble_batched_results(beam, aux)
+
+
+def _assemble_batched_results(beam, aux):
+    """Each instance's result dict from the final beams (B, M) and the
+    search's diagnostics (B,): the best valid branch's state, energy,
+    probability and degeneracy (tnax's ``_assemble_batched_results``),
+    after one pull of what they need."""
     host = {k: beam[k].cpu().numpy()
             for k in ("valid", "Eng", "prob", "deg", "states")}
     aux = {k: v.cpu().numpy() for k, v in aux.items()}
     results = []
-    for b in range(ctx.B):
+    for b in range(len(host["valid"])):
         valid = host["valid"][b]
         Eng = host["Eng"][b].astype(np.float64)
         best = int(np.argmin(np.where(valid, Eng, np.inf)))
@@ -927,8 +1038,12 @@ def multi_flagship_sample(solvers, M=2 ** 10, Dmax=32, tolS=1e-15,
     boundary build, M-walker sampling pass) run once over a batch of
     same-shape Solver instances, every stage with a leading instance axis
     (tnax's ``multi_flagship_sample``, with its arguments; the reference's
-    production pattern of e02). ``mesh`` (several devices) is not ported:
-    NotImplementedError unless None.
+    production pattern of e02). With ``mesh`` (``make_mesh``; every rank
+    passes all the solvers) the instances shard over its 'data' axis, pure
+    data parallelism as tnax's: the first beam rank of each data group
+    samples its block (ValueError unless the instances tile the axis),
+    instance b still on the uniforms of (seed, b), so the states are
+    those of the run without a mesh; every rank returns all the results.
 
     The instances must share (Ny, Nx, Np, lh, lv), beta, device and dtype
     (ValueError otherwise). The ladder's gauges and the boundary stacks
@@ -940,8 +1055,24 @@ def multi_flagship_sample(solvers, M=2 ** 10, Dmax=32, tolS=1e-15,
     :func:`multi_sample`'s list.
     """
     if mesh is not None:
-        raise NotImplementedError("sampling over a device mesh is not "
-                                  "ported yet")
+        block = _mesh.check_mesh(mesh).block(len(solvers), "data")
+        local = None
+        if mesh.index("beam") == 0:
+            ins0 = solvers[0]
+            g = engine.pad_grid(ins0.problem)
+            ids = range(len(solvers))[block]
+            u = torch.stack([instance_uniforms(seed, b, (g.Ny, g.Nx, M),
+                                               ins0.dtype, ins0.device)
+                             for b in ids]) if uniforms is None \
+                else torch.as_tensor(uniforms)[block]
+            local = multi_flagship_sample(
+                solvers[block], M=M, Dmax=Dmax, tolS=tolS, tolV=tolV,
+                max_sweeps=max_sweeps,
+                graduate_truncation=graduate_truncation, pre_steps=pre_steps,
+                pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps,
+                max_scale=max_scale, zipup_rsvd=zipup_rsvd, omega=omega,
+                uniforms=u, stage_times=stage_times)
+        return _mesh.gather_data(local, mesh)
     check_rsvd(zipup_rsvd)
     f = fleet_tables(solvers)
     clock = StageClock(stage_times, f["device"])
@@ -1002,3 +1133,128 @@ def exact_energies_problem(problem, states):
                 if ny > 0 else np.zeros(len(s), np.int32)
             Eng += t.Es[s] + t.Esl[s, lidx] + t.Esu[s, uidx]
     return Eng
+
+
+# ---------------------------------------------------------------------------
+# the device mesh: 'data' over instances, 'beam' over a search's branches
+# ---------------------------------------------------------------------------
+
+make_mesh = _mesh.make_mesh
+
+
+def _check_mesh_device(device, mesh):
+    def index(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return d.type, torch.cuda.current_device()
+        return d.type, d.index if d.type == "cuda" else None
+    if index(device) != index(mesh.device):
+        raise ValueError(f"this rank's instances are on {device}, its mesh "
+                         f"device is {mesh.device}")
+
+
+def beam_boundary(ctx, axis, Dmax, tolS, tolV, max_sweeps,
+                  graduate_truncation=True, rsvd=None, omega=None):
+    """The boundary stack rhoT of ``ctx`` at ``Dmax``, the same on every
+    rank of the beam ``axis``: built (or kept, see
+    ``ContractionContext.build_boundary``) on the axis's first rank and
+    broadcast to the others, which build nothing (redundant QR and SVD
+    builds need not agree to the bit)."""
+    if axis.index == 0:
+        rhoT = ctx.build_boundary(Dmax, tolS, tolV, max_sweeps,
+                                  graduate_truncation, rsvd=rsvd,
+                                  omega=omega)
+    else:
+        rhoT = torch.empty((ctx.B, ctx.Ny + 1, ctx.Nx, Dmax, ctx.lv, Dmax),
+                           dtype=ctx.dtype, device=ctx.device)
+    return _mesh.broadcast(rhoT, axis)
+
+
+def sharded_row_step(mesh, *, M, Nx, bits, min_dEng, log2_cutoff, cand=None,
+                     select="topk"):
+    """The row step over a ('data', 'beam') mesh (tnax's
+    ``sharded_row_step``): a function ``step(beam, row) -> (beam', aux)``
+    of this rank's shards, as tnax's ``shard_map`` body sees them. The
+    beam arrays are this rank's block of the instances and of the M
+    branches, (B/n_data, M/n_beam, ...), with aidx global row-start ids;
+    the row arrays (:func:`row_step`'s) are its block of the instances,
+    with RRs over all M branches. aux (B/n_data,) is reduced over 'beam'.
+    ValueError unless M tiles the beam axis."""
+    _check_select(select)
+    axis = _mesh.check_mesh(mesh).axis("beam")
+    axis.block(M)
+
+    def step(beam, row):
+        return row_step(beam, row, M=M, Nx=Nx, bits=bits, min_dEng=min_dEng,
+                        log2_cutoff=log2_cutoff, cand=cand, axis=axis)
+    return step
+
+
+def sharded_row_records(mesh, *, M, C, Nx, bits, min_dEng, log2_cutoff,
+                        P=None):
+    """:func:`row_records_prog` over the mesh's 'beam' axis (tnax's
+    ``sharded_row_records``): a function ``step(beam, row, AT_row,
+    Wt_row, rec=None) -> (beam', rec)`` of this rank's block of the M
+    branches (vind, Eng, prob, valid (B, M/n_beam, ...)); the records are
+    the same on every rank, so the host replay is the single card's.
+    ValueError unless M and C tile the beam axis."""
+    axis = _mesh.check_mesh(mesh).axis("beam")
+    axis.block(M)
+    axis.block(C)
+
+    def step(beam, row, AT_row, Wt_row, rec=None):
+        return row_records_prog(beam, row, AT_row, Wt_row, M=M, C=C, Nx=Nx,
+                                bits=bits, min_dEng=min_dEng,
+                                log2_cutoff=log2_cutoff, P=P, rec=rec,
+                                axis=axis)
+    return step
+
+
+def sharded_search_gs(ctxs, mesh, M=2 ** 10, relative_P_cutoff=1e-6,
+                      min_dEng=1e-12, Dmax=32, tolS=1e-16, tolV=1e-10,
+                      max_sweeps=20, graduate_truncation=True,
+                      cand_factor=8, select="topk", zipup_rsvd=None,
+                      omega=None, stage_times=None):
+    """Ground-state search over a ('data', 'beam') mesh (tnax's
+    ``sharded_search_gs``, with its arguments): the instances shard over
+    'data', and within each instance the M branches over 'beam', with the
+    pmax, psum, pmin and gathers of :func:`row_step` at every site.
+
+    Every rank passes all the contexts (on its mesh device) and returns
+    the list of every instance's result dict (:func:`multi_search_gs`'s
+    keys). len(ctxs) must tile the data axis and M the beam axis
+    (ValueError). Each data group's stacks are built on its first beam
+    rank and broadcast (:func:`beam_boundary`; ``zipup_rsvd`` and
+    ``omega`` set the zip-up). ``stage_times``, if a dict, receives the
+    seconds of this rank's boundary and search.
+    """
+    ctxs = list(ctxs)
+    if not ctxs:
+        raise ValueError("need at least one context")
+    block = _mesh.check_mesh(mesh).block(len(ctxs), "data")
+    axis = mesh.axis("beam")
+    axis.block(M)
+    _check_select(select)
+    check_rsvd(zipup_rsvd)
+    ctx = ContractionContext.stack(ctxs[block])
+    _check_mesh_device(ctx.device, mesh)
+    clock = StageClock(stage_times, ctx.device)
+    rhoT = beam_boundary(ctx, axis, Dmax, tolS, tolV, max_sweeps,
+                         graduate_truncation, rsvd=zipup_rsvd, omega=omega)
+    clock.lap("boundary")
+    bits = max(1, int(np.ceil(np.log2(max(ctx.lh, ctx.lv)))))
+    log2_cutoff = float(np.log2(relative_P_cutoff)) \
+        if relative_P_cutoff > 0 else NEG
+    cand = None if cand_factor is None else int(cand_factor) * M
+    beam0 = _initial_beam(ctx.B, M, Dmax, ctx.Nx, ctx.Ny, ctx.dtype,
+                          ctx.device)
+    beam0 = {k: v[:, axis.block(M)] for k, v in beam0.items()}
+    beam, aux = full_search_scan(beam0, search_inputs(ctx), rhoT, ctx.Wt,
+                                 M=M, Nx=ctx.Nx, bits=bits,
+                                 min_dEng=min_dEng, log2_cutoff=log2_cutoff,
+                                 cand=cand, axis=axis)
+    clock.lap("search")
+    beam = {k: _mesh.all_gather(beam[k], axis, dim=1)
+            for k in ("valid", "Eng", "prob", "deg", "states")}
+    local = _assemble_batched_results(beam, aux) if axis.index == 0 else None
+    return _mesh.gather_data(local, mesh)

@@ -16,10 +16,14 @@ Energies are replayed exactly in float64 on the host.
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
 
 import numpy as np
 
 from . import config, parallel
+
+logger = logging.getLogger("tnax_torch")
 
 
 @dataclasses.dataclass
@@ -39,13 +43,17 @@ def gibbs_sampling(ctx, M=2 ** 10, Dmax=32, tolS=1e-15, tolV=1e-10,
     ``omega`` is the zip-up's sketch; ``stage_times``, if a dict,
     receives the seconds of the boundary and of the pass."""
     clock = config.StageClock(stage_times, ctx.device)
+    t_total = time.time()
+    logger.info("Preprocessing boundary MPS (D=%d) ...", Dmax)
     ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
                        omega=omega)
     clock.lap("boundary")
+    logger.info("Elapsed: %.2f s", time.time() - t_total)
     rng = np.random.default_rng() if rng is None else rng
     u = np.stack([rng.random(M) for _ in range(ctx.Ny * ctx.Nx)])
     r = parallel.device_sample(
         ctx, M=M, Dmax=Dmax, uniforms=u.reshape(ctx.Ny, ctx.Nx, M),
         stage_times=stage_times)
+    logger.info("Sampling total: %.2f s", time.time() - t_total)
     return SampleResult(energy=r["energy"], states=r["states"],
                         negative_probability=r["negative_probability"])

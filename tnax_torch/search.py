@@ -479,9 +479,11 @@ def search_ground_state(ctx, M=2 ** 10, relative_P_cutoff=1e-6,
     if checkpoint_path and not str(checkpoint_path).endswith(".npz"):
         # np.savez appends '.npz': resume loads the file it wrote
         checkpoint_path = str(checkpoint_path) + ".npz"
+    logger.info("Preprocessing boundary MPS (D=%d) ...", Dmax)
     ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
                        omega=omega)
     clock.lap("boundary")
+    logger.info("Elapsed: %.2f s", time.time() - t_total)
 
     Ny, Nx = ctx.Ny, ctx.Nx
     vind = np.zeros((1, Nx + 1), dtype=np.int32)
@@ -556,6 +558,7 @@ def search_ground_state(ctx, M=2 ** 10, relative_P_cutoff=1e-6,
         if _stop_after_rows is not None and ny + 1 >= _stop_after_rows:
             break
     clock.lap("search")
+    logger.info("Search total: %.2f s", time.time() - t_total)
 
     return SearchResult(
         energy=Eng, probability=prob, degeneracy=int(deg[0]),

@@ -167,6 +167,9 @@ class Solver:
         X, overlaps = ctx.gauges, []
         ms = _pre.ladder_max_scale(max_scale)
         kw = dict(tolS=tolS, tolV=tolV, max_sweeps=max_sweeps, omega=omega)
+        if path == "device":
+            logger.info("Preconditioning ladder (device): betas %s",
+                        [round(b, 3) for b in beta_cond])
         for beta, D in zip(beta_cond, Dmax_cond):
             logger.info("Preconditioning with beta = %.2f", beta)
             for direction in directions:

@@ -777,9 +777,12 @@ def search_spectrum(ins, ctx, excitations_encoding, M=2 ** 10,
     """
     ee = excitations_encoding
     clock = StageClock(stage_times, ctx.device)
+    t_total = time.time()
+    logger.info("Preprocessing boundary MPS (D=%d) ...", Dmax)
     ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
                        rsvd=zipup_rsvd, omega=omega)
     clock.lap("boundary")
+    logger.info("Elapsed: %.2f s", time.time() - t_total)
 
     Ny, Nx = ctx.Ny, ctx.Nx
     vind = np.zeros((1, Nx + 1), dtype=np.int32)
@@ -863,6 +866,7 @@ def search_spectrum(ins, ctx, excitations_encoding, M=2 ** 10,
         vind[:, 1:] = vind[:, :-1]
         vind[:, 0] = 0
     clock.lap("search")
+    logger.info("Spectrum search total: %.2f s", time.time() - t_total)
 
     _finalize_spectrum(ins, ee, lim_hd)
     return SearchResult(
@@ -884,24 +888,31 @@ def records_select(C, M):
     return "compact" if C >= 16 * M else "topk"
 
 
-def caps(M, Np, cand_factor):
-    """(C, P): the candidate cap (None: the full M*Np expansion) and the
-    pull cap of the records (tnax spectrum.py:940-949): at the full
-    expansion P = C, else min(C, max(16 M, ceil(C / 8)))."""
+def caps(M, Np, cand_factor, n_beam=1):
+    """(C, P): the candidate cap (None: the full M*Np expansion), less
+    its remainder modulo ``n_beam`` (tnax spectrum.py:1333), and the pull
+    cap of the records (tnax spectrum.py:940-949): at the full expansion
+    P = C, else min(C, max(16 M, ceil(C / 8)))."""
     C = int(M * Np) if cand_factor is None \
         else int(min(cand_factor * M, M * Np))
+    C -= C % n_beam
     P = C if C >= M * Np else int(min(C, max(16 * M, -(-C // 8))))
     return C, P
 
 
-def dispatch_records(ctx, *, M, C, P, relative_P_cutoff, min_dEng):
+def dispatch_records(ctx, *, M, C, P, relative_P_cutoff, min_dEng,
+                     rhoT=None, axis=None):
     """Launch the records of every row of the B instances of ``ctx``
-    (whose stack rhoT is built) and start each row's copy to the host.
-    Nothing waits: the device runs ahead while the host replays. On CUDA
-    each row's buffer goes to pinned memory with one non-blocking copy,
-    and an event marks its arrival. Returns (layout, [(host buffer,
-    event or None)] per row)."""
+    (whose stack rhoT is built, or given as ``rhoT``) and start each
+    row's copy to the host. Nothing waits: the device runs ahead while
+    the host replays. On CUDA each row's buffer goes to pinned memory
+    with one non-blocking copy, and an event marks its arrival. With a
+    beam ``axis`` the branches shard over its ranks
+    (``parallel.row_records_prog``; the candidates in the "topk" order)
+    and every rank holds the same records. Returns (layout, [(host
+    buffer, event or None)] per row)."""
     B, Ny, Nx = ctx.B, ctx.Ny, ctx.Nx
+    rhoT = ctx.rhoT if rhoT is None else rhoT
     bits = max(1, int(np.ceil(np.log2(max(ctx.lh, ctx.lv)))))
     log2_cutoff = float(np.log2(relative_P_cutoff)) \
         if relative_P_cutoff > 0 else NEG
@@ -909,17 +920,18 @@ def dispatch_records(ctx, *, M, C, P, relative_P_cutoff, min_dEng):
     grid_in = par.search_inputs(ctx)
     grid_in.pop("cols")
     layout = par.record_layout(B, Nx, M, P)
-    select = records_select(C, M)
-    beam = par._initial_beam(B, M, ctx.Dmax, Nx, Ny, ctx.dtype, dev)
-    beam = {k: beam[k] for k in ("vind", "Eng", "prob", "valid")}
+    select = records_select(C, M) if axis is None else "topk"
+    beam = par._initial_beam(B, M, rhoT.shape[3], Nx, Ny, ctx.dtype, dev)
+    beam = {k: beam[k] if axis is None else beam[k][:, axis.block(M)]
+            for k in ("vind", "Eng", "prob", "valid")}
     rows = []
     for ny in range(Ny):
         buf = torch.empty(layout[0], dtype=torch.uint8, device=dev)
         row = {k: v[:, ny] for k, v in grid_in.items()}
         beam, _ = par.row_records_prog(
-            beam, row, ctx.rhoT[:, ny + 1], ctx.Wt[:, ny], M=M, C=C, Nx=Nx,
+            beam, row, rhoT[:, ny + 1], ctx.Wt[:, ny], M=M, C=C, Nx=Nx,
             bits=bits, min_dEng=float(min_dEng), log2_cutoff=log2_cutoff,
-            P=P, select=select, rec=par.record_views(buf, layout))
+            P=P, select=select, rec=par.record_views(buf, layout), axis=axis)
         if dev.type == "cuda":
             host = torch.empty(layout[0], dtype=torch.uint8, pin_memory=True)
             host.copy_(buf, non_blocking=True)
@@ -967,6 +979,7 @@ def _replay_records(ins, ctx, layout, rows, ee, *, b, M, C, P, max_dEng,
     gc_watermark = 1024
 
     for ny in range(Ny):
+        t_row = time.time()
         R = _row_records(rows[ny], layout, b)
         for nx in range(Nx):
             src, indc, slot = (R[k][nx] for k in ("src", "indc", "slot"))
@@ -1085,6 +1098,9 @@ def _replay_records(ins, ctx, layout, rows, ee, *, b, M, C, P, max_dEng,
                 gc_watermark = max(1024, 2 * len(ins.d))
         if ee == 3:
             exc_gc(ins)
+        logger.info("Row %d/%d replayed: %d branches, %d shapes, %.2f s",
+                    ny + 1, Ny, int(out_valid.sum()), len(ins.d),
+                    time.time() - t_row)
         vind_h[:, 1:] = vind_h[:, :-1]
         vind_h[:, 0] = 0
 
@@ -1207,3 +1223,48 @@ def _search(inss, ctx, ee, *, M, relative_P_cutoff, max_dEng, lim_hd,
         stage_times["replay"] = stage_times.get("replay", 0.0) \
             + time.perf_counter() - t0
     return results
+
+
+def sharded_search_spectrum(ins, ctx, excitations_encoding, mesh, M=2 ** 10,
+                            relative_P_cutoff=1e-6, max_dEng=0.0, lim_hd=0,
+                            min_dEng=1e-12, Dmax=32, tolS=1e-16, tolV=1e-10,
+                            max_sweeps=20, graduate_truncation=True,
+                            cand_factor=8, zipup_rsvd=None, omega=None,
+                            native=True, stage_times=None):
+    """Device-record spectrum search of one instance with its M branches
+    sharded over the mesh's 'beam' axis (tnax's
+    ``sharded_search_spectrum``, spectrum.py:1286-1353). Every rank
+    passes the same instance and context (on its mesh device). The
+    stack is built on the axis's first rank and broadcast
+    (``parallel.beam_boundary``), the candidate cap loses its remainder
+    modulo the axis size, each site runs on the ranks' branches with the
+    candidates in the "topk" order, and the records are the same on every
+    rank, so each rank's host replay is the single card's
+    :func:`_replay_records` and every rank returns the same
+    ``search.SearchResult``. M must tile the beam axis (ValueError).
+    ``zipup_rsvd``, ``omega``, ``native`` and ``stage_times`` as in
+    :func:`device_search_spectrum`.
+    """
+    axis = par._mesh.check_mesh(mesh).axis("beam")
+    axis.block(M)
+    par._check_mesh_device(ctx.device, mesh)
+    ins.excitations_encoding = excitations_encoding
+    clock = StageClock(stage_times, ctx.device)
+    rhoT = par.beam_boundary(ctx, axis, Dmax, tolS, tolV, max_sweeps,
+                             graduate_truncation, rsvd=zipup_rsvd,
+                             omega=omega)
+    clock.lap("boundary")
+    C, P = caps(M, ctx.Np, cand_factor, axis.size)
+    layout, rows = dispatch_records(ctx, M=M, C=C, P=P,
+                                    relative_P_cutoff=relative_P_cutoff,
+                                    min_dEng=min_dEng, rhoT=rhoT, axis=axis)
+    clock.lap("records")
+    t0 = time.perf_counter()
+    ins.droplet_native = native
+    res = _replay_records(ins, ctx, layout, rows, excitations_encoding, b=0,
+                          M=M, C=C, P=P, max_dEng=max_dEng, lim_hd=lim_hd,
+                          min_dEng=min_dEng)
+    if stage_times is not None:
+        stage_times["replay"] = stage_times.get("replay", 0.0) \
+            + time.perf_counter() - t0
+    return res
