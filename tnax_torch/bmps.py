@@ -289,7 +289,10 @@ def _alternate(A0, FLs, overlap, right_sweep, left_sweep, *, tol,
     ``while_loop`` condition, with the float32 plateau stop). A lane
     that has stopped keeps its tensors, Schmidt values, environments,
     overlap and norm while the others sweep on; one host read per sweep.
-    Returns (A, overlap (B,), ln_state (B,), sweeps (B,) int64)."""
+    A recording stage clock (``config.recording``) counts the passes, the
+    reads' waits and the seconds from the first read's return to the
+    last's (``variational_s``). Returns (A, overlap (B,), ln_state (B,),
+    sweeps (B,) int64)."""
     B, L, Dn = A0.shape[:3]
     dtype, device = A0.dtype, A0.device
     S0 = torch.zeros((B, L + 1, Dn), dtype=dtype, device=device)
@@ -312,8 +315,18 @@ def _alternate(A0, FLs, overlap, right_sweep, left_sweep, *, tol,
     prev = torch.full((B,), float("inf"), dtype=dtype, device=device)
     sweeps = torch.zeros((B,), dtype=torch.int64, device=device)
     ln_state = torch.zeros((B,), dtype=dtype, device=device)
+    rec = config.recording()
+
+    def more(active):           # one host read per sweep
+        if rec is None:
+            return bool(active.any())
+        return rec.read(bool, active.any())
+
     active = going(diff, prev, sweeps)
-    while bool(active.any()):        # one host read per sweep
+    go = more(active)
+    start = rec.read_end if rec is not None else None
+    passes = 0
+    while go:
         A1, S1, FRs = right_sweep(A, S, FLs)
         A1, S1, FLs1, diff1, ov1, ln1 = left_sweep(A1, S1, FRs)
         A = keep_old(active, A1, A)
@@ -325,6 +338,11 @@ def _alternate(A0, FLs, overlap, right_sweep, left_sweep, *, tol,
         ln_state = torch.where(active, ln1, ln_state)
         sweeps = sweeps + active.long()
         active = going(diff, prev, sweeps)
+        passes += 1
+        go = more(active)
+    if rec is not None:
+        rec.count("passes", passes)
+        rec.count("variational_s", rec.read_end - start)
     return torch.stack(A, dim=1), overlap, ln_state, sweeps
 
 

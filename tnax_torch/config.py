@@ -15,6 +15,7 @@ measured alternative.
 
 from __future__ import annotations
 
+import contextvars
 import time
 
 import torch
@@ -27,23 +28,90 @@ def ensure_precision() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
+# the clock of the stage that records now (see StageClock), per thread
+_RECORDING = contextvars.ContextVar("tnax_torch_stage_clock", default=None)
+
+
+def recording():
+    """The :class:`StageClock` that records the stage running now, or
+    None: code below a stage reaches the clock through this, and does
+    nothing more when it is None."""
+    return _RECORDING.get()
+
+
 class StageClock:
-    """Seconds per pipeline stage, each ended by a device synchronize and
-    added to the stage's entry of the dict (a stage run twice, as in a
-    retried search, counts twice); inert when no dict is given."""
+    """The port's recorder of stage seconds and counters into the caller's
+    ``stage_times`` dict; inert when no dict is given.
+
+    :meth:`lap` ends a stage with a device synchronize and adds its
+    seconds (from the previous lap or the clock's start) to the stage's
+    key: a stage run twice, as in a retried search or a second rung,
+    counts twice. Used as a context manager (``with StageClock(out, dev)
+    as clock:``) with a dict, the clock is the one :func:`recording`
+    returns until the block ends, so that the code below the stage adds
+    to it without being handed it:
+
+    - :meth:`leaf` ends a sub-span of the running stage (``"ladder/build"``)
+      with a synchronize, its seconds taken from the previous key written;
+      the stage's own key keeps its full seconds;
+    - :meth:`count` adds to a counter, and :meth:`read` times a host read
+      that waits for the device (counter ``wait_s``, the read's return
+      time in ``read_end``). Counters accumulate until the next key is
+      written and go in right after it as ``<key>#<counter>``, when not
+      zero. The synchronize that ends a key counts as a wait of that key.
+    """
 
     def __init__(self, out, device):
         self.out, self.device = out, device
-        self.t = time.perf_counter() if out is not None else None
+        self.t = self.mark = time.perf_counter() if out is not None else None
+        self.counters = {}
+        self.read_end = None
+        self._token = None
+
+    def __enter__(self):
+        if self.out is not None:
+            self._token = _RECORDING.set(self)
+        return self
+
+    def __exit__(self, *exc):
+        if self._token is not None:
+            _RECORDING.reset(self._token)
+            self._token = None
+
+    def count(self, name, value):
+        self.counters[name] = self.counters.get(name, 0) + value
+
+    def read(self, fn, *args):
+        """``fn(*args)``, a read that waits for the device, timed."""
+        t = time.perf_counter()
+        out = fn(*args)
+        self.read_end = time.perf_counter()
+        self.count("wait_s", self.read_end - t)
+        return out
+
+    def _write(self, name, start):
+        if self.device.type == "cuda":
+            self.read(torch.cuda.synchronize, self.device)
+        now = time.perf_counter()
+        out = self.out
+        out[name] = out.get(name, 0.0) + now - start
+        for k, v in self.counters.items():
+            if v:
+                key = f"{name}#{k}"
+                out[key] = out.get(key, 0) + v
+        self.counters.clear()
+        self.mark = now
+        return now
 
     def lap(self, name):
+        """End the stage ``name``."""
         if self.out is None:
             return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.out[name] = self.out.get(name, 0.0) + now - self.t
-        self.t = now
+        self.t = self._write(name, self.t)
+
+    def leaf(self, name):
+        """End the sub-span ``name`` of the running stage."""
+        self._write(name, self.mark)
 
 
 def resolve_device(device=None):

@@ -21,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import bmps
+from . import bmps, config
 from .kernels import marginal as _marginal
 from .problems import Problem
 
@@ -146,7 +146,7 @@ def _build_stack(rows, *, conj, forward, Dmax, tolS, tolV, max_sweeps,
     (rho (B, N+1, L, Dmax, d, Dmax), lognorms (B, N+1), overlaps (B, N),
     discarded (B, N)) in row order: the trivial boundary first (forward)
     or last (reverse); overlaps[:, k] and discarded[:, k] are those of
-    absorbing row k."""
+    absorbing row k. A recording stage clock counts the N ``rows``."""
     B, N, L = rows.shape[:3]
     mps = mps0 = bmps.trivial_mps(B, L, Dmax, rows.shape[4], rows.dtype,
                                   rows.device)
@@ -159,6 +159,9 @@ def _build_stack(rows, *, conj, forward, Dmax, tolS, tolV, max_sweeps,
         lns.append(mps.lognorm)
         ovs.append(overlap)
         dss.append(disc)
+    rec = config.recording()
+    if rec is not None:
+        rec.count("rows", N)
     zero = torch.zeros_like(mps0.lognorm)
     if forward:
         As, lns = [mps0.A] + As, [zero] + lns

@@ -753,22 +753,23 @@ def multi_search_gs(ctxs, M=2 ** 10, relative_P_cutoff=1e-6, min_dEng=1e-12,
     ctx = ContractionContext.stack(list(ctxs))
     _check_select(select)
     check_rsvd(zipup_rsvd)
-    clock = StageClock(stage_times, ctx.device)
-    if ctx.rhoT is None or ctx.Dmax != Dmax:
-        ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
-                           rsvd=zipup_rsvd, omega=omega)
-        clock.lap("boundary")
-    bits = max(1, int(np.ceil(np.log2(max(ctx.lh, ctx.lv)))))
-    log2_cutoff = float(np.log2(relative_P_cutoff)) \
-        if relative_P_cutoff > 0 else NEG
-    cand = None if cand_factor is None else int(cand_factor) * M
-    beam0 = _initial_beam(ctx.B, M, ctx.Dmax, ctx.Nx, ctx.Ny, ctx.dtype,
-                          ctx.device)
-    beam, aux = full_search_scan(beam0, search_inputs(ctx), ctx.rhoT, ctx.Wt,
-                                 M=M, Nx=ctx.Nx, bits=bits,
-                                 min_dEng=min_dEng, log2_cutoff=log2_cutoff,
-                                 cand=cand)
-    clock.lap("search")
+    with StageClock(stage_times, ctx.device) as clock:
+        if ctx.rhoT is None or ctx.Dmax != Dmax:
+            ctx.build_boundary(Dmax, tolS, tolV, max_sweeps,
+                               graduate_truncation, rsvd=zipup_rsvd,
+                               omega=omega)
+            clock.lap("boundary")
+        bits = max(1, int(np.ceil(np.log2(max(ctx.lh, ctx.lv)))))
+        log2_cutoff = float(np.log2(relative_P_cutoff)) \
+            if relative_P_cutoff > 0 else NEG
+        cand = None if cand_factor is None else int(cand_factor) * M
+        beam0 = _initial_beam(ctx.B, M, ctx.Dmax, ctx.Nx, ctx.Ny, ctx.dtype,
+                              ctx.device)
+        beam, aux = full_search_scan(beam0, search_inputs(ctx), ctx.rhoT,
+                                     ctx.Wt, M=M, Nx=ctx.Nx, bits=bits,
+                                     min_dEng=min_dEng,
+                                     log2_cutoff=log2_cutoff, cand=cand)
+        clock.lap("search")
     return _assemble_batched_results(beam, aux)
 
 
@@ -835,22 +836,23 @@ def multi_flagship_search_gs(solvers, M=2 ** 10, relative_P_cutoff=1e-6,
     see ``bmps.zipup_apply``) make one context of the fleet, which
     :func:`multi_search_gs` searches with ``cand_factor`` and ``select``.
     ``stage_times``, if a dict, receives the seconds of the four stages
-    (ladder, peps, boundary, search) of the whole batch. Returns
+    (ladder, peps, boundary, search) of the whole batch, the ladder's
+    sub-spans and the counters (``config.StageClock``). Returns
     :func:`multi_search_gs`'s list.
     """
     _check_select(select)
     check_rsvd(zipup_rsvd)
     f = fleet_tables(solvers)
-    clock = StageClock(stage_times, f["device"])
-    ctx = _boundary_stages(
-        solvers, f, clock, pre_steps=pre_steps, max_scale=max_scale,
-        Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
-        pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps, rsvd=zipup_rsvd,
-        omega=omega)
-    return multi_search_gs(
-        [ctx], M=M, relative_P_cutoff=relative_P_cutoff, min_dEng=min_dEng,
-        Dmax=Dmax, cand_factor=cand_factor, select=select,
-        stage_times=stage_times)
+    with StageClock(stage_times, f["device"]) as clock:
+        ctx = _boundary_stages(
+            solvers, f, clock, pre_steps=pre_steps, max_scale=max_scale,
+            Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
+            pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps, rsvd=zipup_rsvd,
+            omega=omega)
+        return multi_search_gs(
+            [ctx], M=M, relative_P_cutoff=relative_P_cutoff, min_dEng=min_dEng,
+            Dmax=Dmax, cand_factor=cand_factor, select=select,
+            stage_times=stage_times)
 
 
 def flagship_search_gs(ins, M=2 ** 10, relative_P_cutoff=1e-6,
@@ -984,25 +986,25 @@ def multi_sample(ctxs, M=2 ** 10, Dmax=32, tolS=1e-15, tolV=1e-10,
         if tuple(u.shape) != shape:
             raise ValueError(f"uniforms must have shape {shape} "
                              f"(B, Ny, Nx, M), got {tuple(u.shape)}")
-    clock = StageClock(stage_times, dev)
-    if ctx.rhoT is None or ctx.Dmax != Dmax:
-        ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
-                           omega=omega)
-        clock.lap("boundary")
-    f = ctx.tables
-    # the Boltzmann tables with the states last, made once per pass, as
-    # for the search: a walker's column is one contiguous run for K4
-    grid_in = dict(lBT=boltzmann_columns(ctx.lB), drindex=ctx.drindex,
-                   dmap=f["dmap"], rmap=f["rmap"], nvalid=f["nvalid"],
-                   cols=f["cols"])
-    beam0 = dict(RL=_unit_rows(B, M, ctx.Dmax, ctx.rhoT),
-                 vind=torch.zeros((B, M, Nx + 1), dtype=torch.int32,
-                                  device=dev),
-                 states=torch.zeros((B, M, Nx * Ny), dtype=torch.int32,
-                                    device=dev))
-    beam, mq = full_sample_scan(beam0, grid_in, ctx.rhoT, ctx.Wt, u, M=M,
-                                Nx=Nx)
-    clock.lap("sample")
+    with StageClock(stage_times, dev) as clock:
+        if ctx.rhoT is None or ctx.Dmax != Dmax:
+            ctx.build_boundary(Dmax, tolS, tolV, max_sweeps,
+                               graduate_truncation, omega=omega)
+            clock.lap("boundary")
+        f = ctx.tables
+        # the Boltzmann tables with the states last, made once per pass, as
+        # for the search: a walker's column is one contiguous run for K4
+        grid_in = dict(lBT=boltzmann_columns(ctx.lB), drindex=ctx.drindex,
+                       dmap=f["dmap"], rmap=f["rmap"], nvalid=f["nvalid"],
+                       cols=f["cols"])
+        beam0 = dict(RL=_unit_rows(B, M, ctx.Dmax, ctx.rhoT),
+                     vind=torch.zeros((B, M, Nx + 1), dtype=torch.int32,
+                                      device=dev),
+                     states=torch.zeros((B, M, Nx * Ny), dtype=torch.int32,
+                                        device=dev))
+        beam, mq = full_sample_scan(beam0, grid_in, ctx.rhoT, ctx.Wt, u, M=M,
+                                    Nx=Nx)
+        clock.lap("sample")
     states, mq = beam["states"].cpu().numpy(), mq.cpu().numpy()  # one pull
     return [dict(states=states[b],
                  energy=exact_energies_problem(p, states[b]),
@@ -1075,14 +1077,14 @@ def multi_flagship_sample(solvers, M=2 ** 10, Dmax=32, tolS=1e-15,
         return _mesh.gather_data(local, mesh)
     check_rsvd(zipup_rsvd)
     f = fleet_tables(solvers)
-    clock = StageClock(stage_times, f["device"])
-    ctx = _boundary_stages(
-        solvers, f, clock, pre_steps=pre_steps, max_scale=max_scale,
-        Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
-        pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps, rsvd=zipup_rsvd,
-        omega=omega)
-    return multi_sample([ctx], M=M, Dmax=Dmax, seed=seed, uniforms=uniforms,
-                        stage_times=stage_times)
+    with StageClock(stage_times, f["device"]) as clock:
+        ctx = _boundary_stages(
+            solvers, f, clock, pre_steps=pre_steps, max_scale=max_scale,
+            Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
+            pre_Dmax=pre_Dmax, pre_sweeps=pre_sweeps, rsvd=zipup_rsvd,
+            omega=omega)
+        return multi_sample([ctx], M=M, Dmax=Dmax, seed=seed,
+                            uniforms=uniforms, stage_times=stage_times)
 
 
 def flagship_sample(ins, M=2 ** 10, Dmax=32, tolS=1e-15, tolV=1e-10,
@@ -1238,22 +1240,23 @@ def sharded_search_gs(ctxs, mesh, M=2 ** 10, relative_P_cutoff=1e-6,
     check_rsvd(zipup_rsvd)
     ctx = ContractionContext.stack(ctxs[block])
     _check_mesh_device(ctx.device, mesh)
-    clock = StageClock(stage_times, ctx.device)
-    rhoT = beam_boundary(ctx, axis, Dmax, tolS, tolV, max_sweeps,
-                         graduate_truncation, rsvd=zipup_rsvd, omega=omega)
-    clock.lap("boundary")
-    bits = max(1, int(np.ceil(np.log2(max(ctx.lh, ctx.lv)))))
-    log2_cutoff = float(np.log2(relative_P_cutoff)) \
-        if relative_P_cutoff > 0 else NEG
-    cand = None if cand_factor is None else int(cand_factor) * M
-    beam0 = _initial_beam(ctx.B, M, Dmax, ctx.Nx, ctx.Ny, ctx.dtype,
-                          ctx.device)
-    beam0 = {k: v[:, axis.block(M)] for k, v in beam0.items()}
-    beam, aux = full_search_scan(beam0, search_inputs(ctx), rhoT, ctx.Wt,
-                                 M=M, Nx=ctx.Nx, bits=bits,
-                                 min_dEng=min_dEng, log2_cutoff=log2_cutoff,
-                                 cand=cand, axis=axis)
-    clock.lap("search")
+    with StageClock(stage_times, ctx.device) as clock:
+        rhoT = beam_boundary(ctx, axis, Dmax, tolS, tolV, max_sweeps,
+                             graduate_truncation, rsvd=zipup_rsvd, omega=omega)
+        clock.lap("boundary")
+        bits = max(1, int(np.ceil(np.log2(max(ctx.lh, ctx.lv)))))
+        log2_cutoff = float(np.log2(relative_P_cutoff)) \
+            if relative_P_cutoff > 0 else NEG
+        cand = None if cand_factor is None else int(cand_factor) * M
+        beam0 = _initial_beam(ctx.B, M, Dmax, ctx.Nx, ctx.Ny, ctx.dtype,
+                              ctx.device)
+        beam0 = {k: v[:, axis.block(M)] for k, v in beam0.items()}
+        beam, aux = full_search_scan(beam0, search_inputs(ctx), rhoT, ctx.Wt,
+                                     M=M, Nx=ctx.Nx, bits=bits,
+                                     min_dEng=min_dEng,
+                                     log2_cutoff=log2_cutoff, cand=cand,
+                                     axis=axis)
+        clock.lap("search")
     beam = {k: _mesh.all_gather(beam[k], axis, dim=1)
             for k in ("valid", "Eng", "prob", "deg", "states")}
     local = _assemble_batched_results(beam, aux) if axis.index == 0 else None

@@ -228,8 +228,12 @@ def _sweep_lr(rhoL, rhoR, X, hdims, lh, max_scale):
 
 
 def _host64(x):
-    """A device tensor as a float64 NumPy array: one read."""
-    return x.to("cpu", torch.float64).numpy()
+    """A device tensor as a float64 NumPy array: one read, timed by a
+    recording stage clock."""
+    rec = config.recording()
+    if rec is None:
+        return x.to("cpu", torch.float64).numpy()
+    return rec.read(x.to, "cpu", torch.float64).numpy()
 
 
 def _host_sweeps(stage, f, beta, X, *, Dmax, tolS, tolV, max_sweeps,
@@ -452,7 +456,10 @@ def _ladder_program(Es, Esl, Esu, dmap, rmap, X0, betas, ndall, max_scale,
 
     Tables and gauges carry the leading instance axis B; ``betas`` is a
     sequence of floats, ``ndall`` (B, Ny-1, Nx) the valid vertical leg
-    dims. Returns (X, overlaps (B, R, 4, Ny-1, Nx)).
+    dims. A recording stage clock gets each rung's three sub-spans:
+    "ladder/peps" (the tensors), "ladder/build" (the stacks) and
+    "ladder/balance" (the sweeps and the gauges' update). Returns (X,
+    overlaps (B, R, 4, Ny-1, Nx)).
     """
     B, Ny, Nx = X0["Xd"].shape[:3]
     Ni = Ny - 1
@@ -460,6 +467,7 @@ def _ladder_program(Es, Esl, Esu, dmap, rmap, X0, betas, ndall, max_scale,
     if Ni == 0:   # one row: no interface to balance, the gauges stay
         return X, X0["Xd"].new_zeros((B, len(betas), 4, 0, Nx))
     overs = []
+    rec = config.recording()
 
     def interfaces(rho):
         # rows 1..Ny-1 of every instance, as one batch of B * Ni
@@ -468,9 +476,13 @@ def _ladder_program(Es, Esl, Esu, dmap, rmap, X0, betas, ndall, max_scale,
     for beta in betas:
         _, Wt = engine.peps_rows(Es, Esl, Esu, dmap, rmap, X["Xl"], X["Xr"],
                                  X["Xu"], X["Xd"], beta, lh=lh, lv=lv)
+        if rec is not None:
+            rec.leaf("ladder/peps")
         rhoT, rhoB = engine.build_rho_both(
             Wt, Dmax=Dmax, tolS=tolS, tolV=tolV, max_sweeps=max_sweeps,
             rsvd=True, omega=omega)
+        if rec is not None:
+            rec.leaf("ladder/build")
         outs = _balance_one_interface(interfaces(rhoB), interfaces(rhoT),
                                       ndall.reshape(B * Ni, -1), max_scale)
         s2, s3, o1_2, o2_2, o1_3, o2_3 = (o.reshape((B, Ni) + o.shape[1:])
@@ -481,6 +493,8 @@ def _ladder_program(Es, Esl, Esu, dmap, rmap, X0, betas, ndall, max_scale,
         Xu[:, 1:] = Xu[:, 1:] / s
         X = dict(X, Xd=Xd, Xu=Xu)
         overs.append(torch.stack([o1_2, o2_2, o1_3, o2_3], dim=1))
+        if rec is not None:
+            rec.leaf("ladder/balance")
     return X, torch.stack(overs, dim=1)
 
 

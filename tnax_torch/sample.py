@@ -42,12 +42,12 @@ def gibbs_sampling(ctx, M=2 ** 10, Dmax=32, tolS=1e-15, tolV=1e-10,
     fresh ``np.random.default_rng()``, as in tnax), drawn in tnax's order.
     ``omega`` is the zip-up's sketch; ``stage_times``, if a dict,
     receives the seconds of the boundary and of the pass."""
-    clock = config.StageClock(stage_times, ctx.device)
-    t_total = time.time()
-    logger.info("Preprocessing boundary MPS (D=%d) ...", Dmax)
-    ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
-                       omega=omega)
-    clock.lap("boundary")
+    with config.StageClock(stage_times, ctx.device) as clock:
+        t_total = time.time()
+        logger.info("Preprocessing boundary MPS (D=%d) ...", Dmax)
+        ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
+                           omega=omega)
+        clock.lap("boundary")
     logger.info("Elapsed: %.2f s", time.time() - t_total)
     rng = np.random.default_rng() if rng is None else rng
     u = np.stack([rng.random(M) for _ in range(ctx.Ny * ctx.Nx)])

@@ -30,7 +30,7 @@ import torch
 
 from . import engine
 from .bmps import check_rsvd
-from .config import StageClock
+from .config import StageClock, recording
 from .kernels.marginal import NEG, boltzmann_columns
 
 logger = logging.getLogger("tnax_torch")
@@ -265,7 +265,8 @@ def upload(a, device):
 def host_read(*tensors):
     """Device tensors as NumPy arrays with one wait for the device: on
     CUDA each is copied into pinned memory without blocking, and a single
-    stream synchronize ends the read."""
+    stream synchronize ends the read (timed by a recording stage
+    clock)."""
     dev = tensors[0].device
     if dev.type != "cuda":
         return [t.numpy() for t in tensors]
@@ -273,7 +274,11 @@ def host_read(*tensors):
             for t in tensors]
     for h, t in zip(host, tensors):
         h.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(dev).synchronize()
+    stream, rec = torch.cuda.current_stream(dev), recording()
+    if rec is None:
+        stream.synchronize()
+    else:
+        rec.read(stream.synchronize)
     return [h.numpy() for h in host]
 
 
@@ -474,90 +479,90 @@ def search_ground_state(ctx, M=2 ** 10, relative_P_cutoff=1e-6,
     ``stage_times``, if a dict, receives the seconds of the boundary and
     of the search.
     """
-    clock = StageClock(stage_times, ctx.device)
-    t_total = time.time()
-    if checkpoint_path and not str(checkpoint_path).endswith(".npz"):
-        # np.savez appends '.npz': resume loads the file it wrote
-        checkpoint_path = str(checkpoint_path) + ".npz"
-    logger.info("Preprocessing boundary MPS (D=%d) ...", Dmax)
-    ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
-                       omega=omega)
-    clock.lap("boundary")
-    logger.info("Elapsed: %.2f s", time.time() - t_total)
+    with StageClock(stage_times, ctx.device) as clock:
+        t_total = time.time()
+        if checkpoint_path and not str(checkpoint_path).endswith(".npz"):
+            # np.savez appends '.npz': resume loads the file it wrote
+            checkpoint_path = str(checkpoint_path) + ".npz"
+        logger.info("Preprocessing boundary MPS (D=%d) ...", Dmax)
+        ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
+                           omega=omega)
+        clock.lap("boundary")
+        logger.info("Elapsed: %.2f s", time.time() - t_total)
 
-    Ny, Nx = ctx.Ny, ctx.Nx
-    vind = np.zeros((1, Nx + 1), dtype=np.int32)
-    states = np.zeros((1, Nx * Ny), dtype=np.int32)
-    Eng = np.zeros(1)
-    prob = np.zeros(1)
-    deg = np.ones(1, dtype=np.int64)
-    pd_max, globalmin, globalmin_core = -np.inf, 0.0, 0.0
-    count_max = 0
-    ny_start = 0
-    if resume and checkpoint_path:
-        ck = np.load(checkpoint_path)
-        ny_start = int(ck["ny"])
-        vind, states = ck["vind"], ck["states"]
-        Eng, prob, deg = ck["Eng"], ck["prob"], ck["deg"]
-        pd_max, globalmin = float(ck["pd_max"]), float(ck["globalmin"])
-        if "globalmin_core" in ck:
-            globalmin_core = float(ck["globalmin_core"])
-        logger.info("Resuming from row %d (%s)", ny_start, checkpoint_path)
+        Ny, Nx = ctx.Ny, ctx.Nx
+        vind = np.zeros((1, Nx + 1), dtype=np.int32)
+        states = np.zeros((1, Nx * Ny), dtype=np.int32)
+        Eng = np.zeros(1)
+        prob = np.zeros(1)
+        deg = np.ones(1, dtype=np.int64)
+        pd_max, globalmin, globalmin_core = -np.inf, 0.0, 0.0
+        count_max = 0
+        ny_start = 0
+        if resume and checkpoint_path:
+            ck = np.load(checkpoint_path)
+            ny_start = int(ck["ny"])
+            vind, states = ck["vind"], ck["states"]
+            Eng, prob, deg = ck["Eng"], ck["prob"], ck["deg"]
+            pd_max, globalmin = float(ck["pd_max"]), float(ck["globalmin"])
+            if "globalmin_core" in ck:
+                globalmin_core = float(ck["globalmin_core"])
+            logger.info("Resuming from row %d (%s)", ny_start, checkpoint_path)
 
-    sites = HostSites(ctx, M, relative_P_cutoff)
-    for ny in range(ny_start, Ny):
-        t_row = time.time()
-        K = len(prob)
-        RL = sites.start_row(ny, vind)
-        aidx = np.arange(K, dtype=np.int32)
-
-        for nx in range(Nx):
-            n = int(ctx.nstates[0, ny, nx])
-            inds, indc, probf, pd_max, minP, minP_core = expand_candidates(
-                *sites.marginals(nx, RL, aidx, vind, prob), prob, K, n,
-                ctx.Np, M, relative_P_cutoff, pd_max)
-            globalmin = min(globalmin, minP)
-            globalmin_core = min(globalmin_core, minP_core)
-            count_max = max(count_max, len(probf))
-            states = states[inds]
-            states[:, ny * Nx + nx] = indc
-            vind = vind[inds]
-            deg = deg[inds]
-            aidx = aidx[inds]
-            Eng = Eng[inds]
-            # exact f64 energy of the newly fixed block
-            Es, Esl, Esu = ctx.energy_tables(ny, nx)
-            Eng = Eng + Es[indc] + Esl[indc, vind[:, nx]] \
-                + Esu[indc, vind[:, nx + 1]]
-            vind[:, nx] = ctx.dmap[0, ny, nx][indc]
-            vind[:, nx + 1] = ctx.rmap[0, ny, nx][indc]
-
-            vindn, rep, degn, probn, _, _, _ = merge_by_vind(
-                vind, Eng, probf, deg, min_dEng)
-
-            keep, pd_max = top_m(probn, M, pd_max)
-            vind = vindn[keep]
-            prob = probn[keep]
-            deg = degn[keep]
-            rk = rep[keep]
-            states = states[rk]
-            Eng = Eng[rk]
-            parent = inds[rk].astype(np.int32)
-            aidx = aidx[rk]
+        sites = HostSites(ctx, M, relative_P_cutoff)
+        for ny in range(ny_start, Ny):
+            t_row = time.time()
             K = len(prob)
-            RL = sites.rl_update(nx, RL, parent, vind[:, nx])
+            RL = sites.start_row(ny, vind)
+            aidx = np.arange(K, dtype=np.int32)
 
-        logger.info("Row %d/%d: %d branches, %.2f s", ny + 1, Ny, K,
-                    time.time() - t_row)
-        vind[:, 1:] = vind[:, :-1]
-        vind[:, 0] = 0
-        if checkpoint_path:
-            np.savez(checkpoint_path, ny=ny + 1, vind=vind, states=states,
-                     Eng=Eng, prob=prob, deg=deg, pd_max=pd_max,
-                     globalmin=globalmin, globalmin_core=globalmin_core)
-        if _stop_after_rows is not None and ny + 1 >= _stop_after_rows:
-            break
-    clock.lap("search")
+            for nx in range(Nx):
+                n = int(ctx.nstates[0, ny, nx])
+                inds, indc, probf, pd_max, minP, minP_core = expand_candidates(
+                    *sites.marginals(nx, RL, aidx, vind, prob), prob, K, n,
+                    ctx.Np, M, relative_P_cutoff, pd_max)
+                globalmin = min(globalmin, minP)
+                globalmin_core = min(globalmin_core, minP_core)
+                count_max = max(count_max, len(probf))
+                states = states[inds]
+                states[:, ny * Nx + nx] = indc
+                vind = vind[inds]
+                deg = deg[inds]
+                aidx = aidx[inds]
+                Eng = Eng[inds]
+                # exact f64 energy of the newly fixed block
+                Es, Esl, Esu = ctx.energy_tables(ny, nx)
+                Eng = Eng + Es[indc] + Esl[indc, vind[:, nx]] \
+                    + Esu[indc, vind[:, nx + 1]]
+                vind[:, nx] = ctx.dmap[0, ny, nx][indc]
+                vind[:, nx + 1] = ctx.rmap[0, ny, nx][indc]
+
+                vindn, rep, degn, probn, _, _, _ = merge_by_vind(
+                    vind, Eng, probf, deg, min_dEng)
+
+                keep, pd_max = top_m(probn, M, pd_max)
+                vind = vindn[keep]
+                prob = probn[keep]
+                deg = degn[keep]
+                rk = rep[keep]
+                states = states[rk]
+                Eng = Eng[rk]
+                parent = inds[rk].astype(np.int32)
+                aidx = aidx[rk]
+                K = len(prob)
+                RL = sites.rl_update(nx, RL, parent, vind[:, nx])
+
+            logger.info("Row %d/%d: %d branches, %.2f s", ny + 1, Ny, K,
+                        time.time() - t_row)
+            vind[:, 1:] = vind[:, :-1]
+            vind[:, 0] = 0
+            if checkpoint_path:
+                np.savez(checkpoint_path, ny=ny + 1, vind=vind, states=states,
+                         Eng=Eng, prob=prob, deg=deg, pd_max=pd_max,
+                         globalmin=globalmin, globalmin_core=globalmin_core)
+            if _stop_after_rows is not None and ny + 1 >= _stop_after_rows:
+                break
+        clock.lap("search")
     logger.info("Search total: %.2f s", time.time() - t_total)
 
     return SearchResult(

@@ -143,9 +143,11 @@ class Solver:
         (two rows per 'ud' sweep, tnax's). ``omega`` is the zip-up's
         sketch (``graduate_truncation`` has no effect on it);
         ``stage_times``, if a dict, receives the seconds of the
-        device ladder ("ladder") or of the host path's builds and sweeps
-        ("ud builds", "ud sweeps", "lr builds", "lr sweeps"), each ended
-        by a synchronize.
+        device ladder ("ladder", with each rung's sub-spans "ladder/peps",
+        "ladder/build" and "ladder/balance") or of the host path's builds
+        and sweeps ("ud builds", "ud sweeps", "lr builds", "lr sweeps"),
+        each ended by a synchronize, and their counters
+        (``config.StageClock``).
         """
         if mode != "balancing":
             raise ValueError("only mode='balancing' is implemented")
@@ -161,32 +163,32 @@ class Solver:
             beta_cond = _pre.ladder_betas(self.beta, steps)
         if not Dmax_cond:
             Dmax_cond = [8] * len(beta_cond)
-        clock = config.StageClock(stage_times, self.device)
-        ctx = self._context()
-        f = ctx.tables
-        X, overlaps = ctx.gauges, []
-        ms = _pre.ladder_max_scale(max_scale)
-        kw = dict(tolS=tolS, tolV=tolV, max_sweeps=max_sweeps, omega=omega)
-        if path == "device":
-            logger.info("Preconditioning ladder (device): betas %s",
-                        [round(b, 3) for b in beta_cond])
-        for beta, D in zip(beta_cond, Dmax_cond):
-            logger.info("Preconditioning with beta = %.2f", beta)
-            for direction in directions:
-                if direction == "lr":
-                    X = _pre.lr_host(f, beta, X, Dmax=D, max_scale=ms,
-                                     clock=clock, **kw)
-                elif path == "host":
-                    X, o = _pre.ud_host(f, beta, X, Dmax=D, max_scale=ms,
-                                        clock=clock, **kw)
-                    overlaps.append(o[0])
-                else:
-                    X, o = _pre._ladder_program(
-                        f["Es"], f["Esl"], f["Esu"], f["dmap"], f["rmap"],
-                        X, [beta], f["ndall"], ms, Dmax=D, lh=f["lh"],
-                        lv=f["lv"], **kw)
-                    clock.lap("ladder")
-                    overlaps.append(_pre.overlaps_ud(o[0].cpu().numpy()))
+        with config.StageClock(stage_times, self.device) as clock:
+            ctx = self._context()
+            f = ctx.tables
+            X, overlaps = ctx.gauges, []
+            ms = _pre.ladder_max_scale(max_scale)
+            kw = dict(tolS=tolS, tolV=tolV, max_sweeps=max_sweeps, omega=omega)
+            if path == "device":
+                logger.info("Preconditioning ladder (device): betas %s",
+                            [round(b, 3) for b in beta_cond])
+            for beta, D in zip(beta_cond, Dmax_cond):
+                logger.info("Preconditioning with beta = %.2f", beta)
+                for direction in directions:
+                    if direction == "lr":
+                        X = _pre.lr_host(f, beta, X, Dmax=D, max_scale=ms,
+                                         clock=clock, **kw)
+                    elif path == "host":
+                        X, o = _pre.ud_host(f, beta, X, Dmax=D, max_scale=ms,
+                                            clock=clock, **kw)
+                        overlaps.append(o[0])
+                    else:
+                        X, o = _pre._ladder_program(
+                            f["Es"], f["Esl"], f["Esu"], f["dmap"], f["rmap"],
+                            X, [beta], f["ndall"], ms, Dmax=D, lh=f["lh"],
+                            lv=f["lv"], **kw)
+                        clock.lap("ladder")
+                        overlaps.append(_pre.overlaps_ud(_pre._host64(o[0])))
         self._gauges = X
         # worst-case mixed overlaps per interface, one row pair per sweep
         self.overlaps_ud = np.vstack(overlaps) if overlaps \

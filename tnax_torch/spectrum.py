@@ -776,96 +776,96 @@ def search_spectrum(ins, ctx, excitations_encoding, M=2 ** 10,
     ``search.SearchResult``.
     """
     ee = excitations_encoding
-    clock = StageClock(stage_times, ctx.device)
-    t_total = time.time()
-    logger.info("Preprocessing boundary MPS (D=%d) ...", Dmax)
-    ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
-                       rsvd=zipup_rsvd, omega=omega)
-    clock.lap("boundary")
-    logger.info("Elapsed: %.2f s", time.time() - t_total)
+    with StageClock(stage_times, ctx.device) as clock:
+        t_total = time.time()
+        logger.info("Preprocessing boundary MPS (D=%d) ...", Dmax)
+        ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
+                           rsvd=zipup_rsvd, omega=omega)
+        clock.lap("boundary")
+        logger.info("Elapsed: %.2f s", time.time() - t_total)
 
-    Ny, Nx = ctx.Ny, ctx.Nx
-    vind = np.zeros((1, Nx + 1), dtype=np.int32)
-    states = np.zeros((1, Nx * Ny), dtype=np.int32)
-    Eng = np.zeros(1)
-    prob = np.zeros(1)
-    deg = np.ones(1, dtype=np.int64)
-    pd_max, globalmin, globalmin_core = -np.inf, 1.0, 0.0
-    ins.droplet_native = native
-    exc_init(ins)
-    if ee > 1:
-        _reset_problem_adjacency(ins, Nx, Ny)
+        Ny, Nx = ctx.Ny, ctx.Nx
+        vind = np.zeros((1, Nx + 1), dtype=np.int32)
+        states = np.zeros((1, Nx * Ny), dtype=np.int32)
+        Eng = np.zeros(1)
+        prob = np.zeros(1)
+        deg = np.ones(1, dtype=np.int64)
+        pd_max, globalmin, globalmin_core = -np.inf, 1.0, 0.0
+        ins.droplet_native = native
+        exc_init(ins)
+        if ee > 1:
+            _reset_problem_adjacency(ins, Nx, Ny)
 
-    sites = HostSites(ctx, M, relative_P_cutoff)
-    for ny in range(Ny):
-        t_row = time.time()
-        K = len(prob)
-        RL = sites.start_row(ny, vind)
-        aidx = np.arange(K, dtype=np.int32)
-
-        for nx in range(Nx):
-            n = int(ctx.nstates[0, ny, nx])
-            inds, indc, probf, pd_max, minP, minP_core = expand_candidates(
-                *sites.marginals(nx, RL, aidx, vind, prob), prob, K, n,
-                ctx.Np, M, relative_P_cutoff, pd_max)
-            globalmin = min(globalmin, minP)
-            globalmin_core = min(globalmin_core, minP_core)
-            states = states[inds]
-            states[:, ny * Nx + nx] = indc
-            vind = vind[inds]
-            deg = deg[inds]
-            aidx = aidx[inds]
-            Eng = Eng[inds]
-            Es, Esl, Esu = ctx.energy_tables(ny, nx)
-            Eng = Eng + Es[indc] + Esl[indc, vind[:, nx]] \
-                + Esu[indc, vind[:, nx + 1]]
-            vind[:, nx] = ctx.dmap[0, ny, nx][indc]
-            vind[:, nx + 1] = ctx.rmap[0, ny, nx][indc]
-
-            vindn, rep, degn, probn, gorder, starts, g = merge_by_vind(
-                vind, Eng, probf, deg, min_dEng)
-            ends = np.r_[starts[1:], len(g)]
-            keep, pd_max = top_m(probn, M, pd_max)
-
-            # droplet recording: the losers of each kept merge group
-            new_el = []
-            for kk in keep:
-                members = gorder[starts[kk]:ends[kk]]
-                rep_kk = rep[kk]
-                E_kk = Eng[rep_kk]
-                bel = ins.el[inds[rep_kk]][:]
-
-                def _loser(ii):
-                    dfull = np.bitwise_xor(states[rep_kk], states[ii])
-                    dpos = np.flatnonzero(dfull).astype(np.int64)
-                    return (Eng[ii] - E_kk, dpos,
-                            dfull[dpos].astype(np.int64),
-                            probf[ii] - probn[kk], ins.el[inds[ii]])
-                losers = (_loser(ii) for ii in members if ii != rep_kk)
-                record_losers(ins, ee, bel, losers, ny, nx, Nx, max_dEng,
-                              lim_hd)
-                new_el.append(bel)
-
-            vind = vindn[keep]
-            prob = probn[keep]
-            deg = degn[keep]
-            rk = rep[keep]
-            states = states[rk]
-            Eng = Eng[rk]
-            parent = inds[rk].astype(np.int32)
-            aidx = aidx[rk]
-            ins.el = new_el
+        sites = HostSites(ctx, M, relative_P_cutoff)
+        for ny in range(Ny):
+            t_row = time.time()
             K = len(prob)
-            RL = sites.rl_update(nx, RL, parent, vind[:, nx])
-            if ee < 3:
+            RL = sites.start_row(ny, vind)
+            aidx = np.arange(K, dtype=np.int32)
+
+            for nx in range(Nx):
+                n = int(ctx.nstates[0, ny, nx])
+                inds, indc, probf, pd_max, minP, minP_core = expand_candidates(
+                    *sites.marginals(nx, RL, aidx, vind, prob), prob, K, n,
+                    ctx.Np, M, relative_P_cutoff, pd_max)
+                globalmin = min(globalmin, minP)
+                globalmin_core = min(globalmin_core, minP_core)
+                states = states[inds]
+                states[:, ny * Nx + nx] = indc
+                vind = vind[inds]
+                deg = deg[inds]
+                aidx = aidx[inds]
+                Eng = Eng[inds]
+                Es, Esl, Esu = ctx.energy_tables(ny, nx)
+                Eng = Eng + Es[indc] + Esl[indc, vind[:, nx]] \
+                    + Esu[indc, vind[:, nx + 1]]
+                vind[:, nx] = ctx.dmap[0, ny, nx][indc]
+                vind[:, nx + 1] = ctx.rmap[0, ny, nx][indc]
+
+                vindn, rep, degn, probn, gorder, starts, g = merge_by_vind(
+                    vind, Eng, probf, deg, min_dEng)
+                ends = np.r_[starts[1:], len(g)]
+                keep, pd_max = top_m(probn, M, pd_max)
+
+                # droplet recording: the losers of each kept merge group
+                new_el = []
+                for kk in keep:
+                    members = gorder[starts[kk]:ends[kk]]
+                    rep_kk = rep[kk]
+                    E_kk = Eng[rep_kk]
+                    bel = ins.el[inds[rep_kk]][:]
+
+                    def _loser(ii):
+                        dfull = np.bitwise_xor(states[rep_kk], states[ii])
+                        dpos = np.flatnonzero(dfull).astype(np.int64)
+                        return (Eng[ii] - E_kk, dpos,
+                                dfull[dpos].astype(np.int64),
+                                probf[ii] - probn[kk], ins.el[inds[ii]])
+                    losers = (_loser(ii) for ii in members if ii != rep_kk)
+                    record_losers(ins, ee, bel, losers, ny, nx, Nx, max_dEng,
+                                  lim_hd)
+                    new_el.append(bel)
+
+                vind = vindn[keep]
+                prob = probn[keep]
+                deg = degn[keep]
+                rk = rep[keep]
+                states = states[rk]
+                Eng = Eng[rk]
+                parent = inds[rk].astype(np.int32)
+                aidx = aidx[rk]
+                ins.el = new_el
+                K = len(prob)
+                RL = sites.rl_update(nx, RL, parent, vind[:, nx])
+                if ee < 3:
+                    exc_gc(ins)
+            if ee == 3:
                 exc_gc(ins)
-        if ee == 3:
-            exc_gc(ins)
-        logger.info("Row %d/%d: %d branches, %d shapes, %.2f s", ny + 1, Ny,
-                    K, len(ins.d), time.time() - t_row)
-        vind[:, 1:] = vind[:, :-1]
-        vind[:, 0] = 0
-    clock.lap("search")
+            logger.info("Row %d/%d: %d branches, %d shapes, %.2f s", ny + 1,
+                        Ny, K, len(ins.d), time.time() - t_row)
+            vind[:, 1:] = vind[:, :-1]
+            vind[:, 0] = 0
+        clock.lap("search")
     logger.info("Spectrum search total: %.2f s", time.time() - t_total)
 
     _finalize_spectrum(ins, ee, lim_hd)
@@ -1203,15 +1203,15 @@ def _search(inss, ctx, ee, *, M, relative_P_cutoff, max_dEng, lim_hd,
             n_live=None):
     """The spectrum search of the instances ``inss`` of the context
     ``ctx``: boundary, records, replay of each live instance."""
-    clock = StageClock(stage_times, ctx.device)
-    ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
-                       rsvd=zipup_rsvd, omega=omega)
-    clock.lap("boundary")
-    C, P = caps(M, ctx.Np, cand_factor)
-    layout, rows = dispatch_records(ctx, M=M, C=C, P=P,
-                                    relative_P_cutoff=relative_P_cutoff,
-                                    min_dEng=min_dEng)
-    clock.lap("records")
+    with StageClock(stage_times, ctx.device) as clock:
+        ctx.build_boundary(Dmax, tolS, tolV, max_sweeps, graduate_truncation,
+                           rsvd=zipup_rsvd, omega=omega)
+        clock.lap("boundary")
+        C, P = caps(M, ctx.Np, cand_factor)
+        layout, rows = dispatch_records(ctx, M=M, C=C, P=P,
+                                        relative_P_cutoff=relative_P_cutoff,
+                                        min_dEng=min_dEng)
+        clock.lap("records")
     t0 = time.perf_counter()
     results = []
     for b, ins in enumerate(inss[:n_live]):
@@ -1249,16 +1249,17 @@ def sharded_search_spectrum(ins, ctx, excitations_encoding, mesh, M=2 ** 10,
     axis.block(M)
     par._check_mesh_device(ctx.device, mesh)
     ins.excitations_encoding = excitations_encoding
-    clock = StageClock(stage_times, ctx.device)
-    rhoT = par.beam_boundary(ctx, axis, Dmax, tolS, tolV, max_sweeps,
-                             graduate_truncation, rsvd=zipup_rsvd,
-                             omega=omega)
-    clock.lap("boundary")
-    C, P = caps(M, ctx.Np, cand_factor, axis.size)
-    layout, rows = dispatch_records(ctx, M=M, C=C, P=P,
-                                    relative_P_cutoff=relative_P_cutoff,
-                                    min_dEng=min_dEng, rhoT=rhoT, axis=axis)
-    clock.lap("records")
+    with StageClock(stage_times, ctx.device) as clock:
+        rhoT = par.beam_boundary(ctx, axis, Dmax, tolS, tolV, max_sweeps,
+                                 graduate_truncation, rsvd=zipup_rsvd,
+                                 omega=omega)
+        clock.lap("boundary")
+        C, P = caps(M, ctx.Np, cand_factor, axis.size)
+        layout, rows = dispatch_records(ctx, M=M, C=C, P=P,
+                                        relative_P_cutoff=relative_P_cutoff,
+                                        min_dEng=min_dEng, rhoT=rhoT,
+                                        axis=axis)
+        clock.lap("records")
     t0 = time.perf_counter()
     ins.droplet_native = native
     res = _replay_records(ins, ctx, layout, rows, excitations_encoding, b=0,
