@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with one CUDA card. It
-  1. prints the card and its power limit and builds the four kernels, one
+  1. prints the card and its power limit and builds the five kernels, one
      nvcc per source, all at once;
   2. compares each kernel with its plain PyTorch version on the card, in
      float32 and float64, at the single search's shapes (B = 1) and the
@@ -19,7 +19,10 @@ Run from the root of a checkout on a machine with one CUDA card. It
      alone (20 calls captured in one CUDA graph, per call), the least time
      the card could take (``bound_ms``) and the launch floor (one launch
      of a one-element kernel); for K2 also ``torch.sort(stable=True)`` of
-     the keys, the time of the sort alone;
+     the keys, the time of the sort alone; K5 (the ladder's variational
+     polish) in float32 on every row of the chimera-2048 ladder (2 lanes)
+     and of the chimera-512 fleet's (16 lanes) against the plain polish,
+     with the whole ladder's polish time of both (``polish_checks``);
   3. drives the flagship ground-state search through the public entry
      points (load_Jij -> Solver -> parallel.flagship_search_gs) on the
      committed synthetic chimera-2048 instance at M=1024, D=32, cutoff
@@ -531,6 +534,122 @@ def kernel_checks(tt, torch, dev, floor):
     return out
 
 
+def polish_rows(tt, torch, paths, side, betas):
+    """The polish inputs (A0, phi_A, Wc, tol, max_sweeps) of every row of
+    the float32 'ud' ladder of the instances in ``paths`` (one batch),
+    captured on the card."""
+    from tnax_torch import bmps, precondition
+    problems = [tt.Solver(mode="Ising", Nx=side, Ny=side, Nc=8,
+                          J=tt.round_Jij(tt.Jij_f2p(tt.load_Jij(p)), 1 / 75),
+                          beta=3, device="cuda", dtype=torch.float32).problem
+                for p in paths]
+    rows, orig = [], bmps.variational_implicit
+
+    def capture(mps, phi_A, W, *, conj, tol, max_sweeps):
+        rows.append((mps.A.clone(), phi_A.clone(),
+                     bmps._orient_mpo(W, conj).clone(), tol, max_sweeps))
+        return orig(mps, phi_A, W, conj=conj, tol=tol, max_sweeps=max_sweeps)
+
+    bmps.variational_implicit = capture
+    try:
+        precondition.precondition_fleet(problems, betas, device="cuda",
+                                        dtype=torch.float32)
+    finally:
+        bmps.variational_implicit = orig
+    return rows
+
+
+def polish_ops(L, sweeps):
+    """Floating-point operations of K5's polish of one lane of L sites
+    that ran ``sweeps`` passes: per site step the 64 x 256 x 256 product
+    and three 131,072-FMA contractions (X, projection, environment
+    update; the left environments of A0 skip the projection), two each
+    per FMA; the QR and the SVD are left out (under 1%)."""
+    prod, small = 64 * 256 * 256, 8 * 16 * 8 * 128
+    return 2 * (L * (prod + 2 * small)
+                + int(sweeps) * (2 * L - 1) * (prod + 3 * small))
+
+
+def polish_checks(tt, torch, floor):
+    """Phase 2, K5: the ladder's polish in one launch against the plain
+    polish on the card, float32, on every row of the chimera-2048 ladder
+    (two rungs, two lanes a row: B1) and of the eight chimera-512
+    instances' (one rung, 16 lanes: B8). Lanes whose sweeps are equal:
+    the states agree to a fidelity of 1 - 1e-6 and ln_state to 1e-4;
+    the lanes apart are counted (float32's stop sits on rounding noise,
+    tests/test_torch_gpu.py), and the most sweeps a row, summed, agree
+    within half a pass a row; the whole ladder's polish time of both
+    (CUDA events around each call); then on the row of the most passes
+    the kernel's wrapper and device times, the plain version's and the
+    bound (its operations at the FP32 rate: K5 uses one SM a lane)."""
+    from tnax_torch import bmps, kernels
+    cases = (("B1", [INSTANCE], 16, [1.5, 3.0]),
+             ("B8", [f + ".txt" for f in FLEET], 8, [3.0]))
+    out = {}
+    for label, paths, side, betas in cases:
+        rows = polish_rows(tt, torch, paths, side, betas)
+        tot = {"k5": 0.0, "plain": 0.0}
+        passes = {"k5": 0, "plain": 0}
+        unequal = apart = 0
+        best = None
+        for A0, phi_A, Wc, tol, ms in rows:
+            res = {}
+            for side_, fn in (("k5", kernels.polish_row),
+                              ("plain", kernels.polish_row_plain)):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                res[side_] = fn(A0, phi_A, Wc, tol=tol, max_sweeps=ms)
+                b.record()
+                b.synchronize()
+                tot[side_] += a.elapsed_time(b)
+                passes[side_] += int(res[side_][3].max())
+            (Ak, _, lk, sk), (Ap, _, lp, sp) = res["k5"], res["plain"]
+            unequal += int((sk != sp).sum())
+            apart = max(apart, int((sk - sp).abs().max()))
+            same = sk == sp
+            fid = (bmps.mps_dot(Ak.double(), Ap.double()).abs()
+                   / torch.sqrt(bmps.mps_dot(Ak.double(), Ak.double())
+                                * bmps.mps_dot(Ap.double(), Ap.double())))
+            check(bool((fid[same] > 1 - 1e-6).all())
+                  and bool(((lk - lp).abs()[same] <= 1e-4).all()),
+                  f"K5 {label}: states or ln_state differ")
+            if best is None or int(sk.max()) > int(best[4][3].max()):
+                best = (A0, phi_A, Wc, tol, res["k5"], ms)
+        check(abs(passes["k5"] - passes["plain"]) <= 0.5 * len(rows),
+              f"K5 {label}: passes {passes['k5']} vs {passes['plain']} over "
+              f"{len(rows)} rows")
+        A0, phi_A, Wc, tol, got, ms = best
+        L = A0.shape[1]
+        ops = sum(polish_ops(L, s) for s in got[3].tolist())
+        moved = nbytes(A0, phi_A, Wc, got[0])
+        want = kernels.polish_row_plain(A0, phi_A, Wc, tol=tol, max_sweeps=ms)
+        same = got[3] == want[3]     # max_abs_err over lanes of equal sweeps
+        compare_and_time(
+            out, ("polish", label), "float32", got[0][same], want[0][same],
+            lambda: kernels.polish_row(A0, phi_A, Wc, tol=tol, max_sweeps=ms),
+            lambda: kernels.polish_row_plain(A0, phi_A, Wc, tol=tol,
+                                             max_sweeps=ms),
+            moved, ops, torch,
+            extra=dict(rows=len(rows), lanes=A0.shape[0], sites=L,
+                       ladder_k5_ms=tot["k5"], ladder_plain_ms=tot["plain"],
+                       passes_k5=passes["k5"], passes_plain=passes["plain"],
+                       lanes_apart=unequal, most_passes_apart=apart,
+                       row_sweeps=got[3].tolist()))
+        r = out["polish"]["float32"][label]
+        print(f"kernel polish {label}: {len(rows)} rows x {A0.shape[0]} "
+              f"lanes, L={L}: the ladder's polish K5 {tot['k5']:.1f} ms vs "
+              f"plain {tot['plain']:.1f} ms; passes (most a row, summed) "
+              f"{passes['k5']} vs {passes['plain']}, {unequal} lane-rows "
+              f"apart (by up to {apart}); the row of {got[3].tolist()} "
+              f"sweeps: "
+              f"wrapper {r['ms']:.3f} ms  device {r['device_ms']:.3f} ms  "
+              f"plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']})  launch floor {floor:.4f} ms  max_abs_err "
+              f"{r['max_abs_err']:.3g}", flush=True)
+    return out
+
+
 def launch_floor_ms(torch, dev):
     """Median time of one launch of a one-element kernel: the floor that
     every kernel launch pays, whatever its work."""
@@ -651,9 +770,6 @@ def fleet_phase(tt, torch):
         with open(base + "_oracle.json") as f:
             oracles.append(json.load(f))
     o = oracles[0]
-    want = dict(gebal=2 * o["Nx"], merge=o["Nx"] * o["Ny"],
-                marginal_epilogue=o["Nx"] * o["Ny"],
-                sample_site=0)   # pre_steps = 1
     runs = {}
     for dtype, labels in ((torch.float64, ["f64"]),
                           (torch.float32, ["f32 cold", "f32 warm 1",
@@ -661,8 +777,13 @@ def fleet_phase(tt, torch):
         for label in labels:
             runs[label] = fleet_run(tt, torch, Js, oracles, dtype, label)
             _, _, rs, Es, counts = runs[label]
+            # pre_steps = 1; K5 polishes each float32 ladder row
+            want = dict(gebal=2 * o["Nx"], merge=o["Nx"] * o["Ny"],
+                        marginal_epilogue=o["Nx"] * o["Ny"], sample_site=0,
+                        polish=o["Ny"] if dtype == torch.float32 else 0)
             check(counts == want, f"fleet {label}: launches {counts}, "
-                  f"want {want} (one per site or sweep step per batch)")
+                  f"want {want} (one per site, sweep step or ladder row "
+                  f"per batch)")
             tol = 1e-9 if dtype == torch.float64 else 1e-3
             for r, E, orc in zip(rs, Es, oracles):
                 check(abs(r["energy"] - E) <= tol,
@@ -726,9 +847,12 @@ def sample_run(tt, torch, Js, n, dtype, label, M, seed=0, uniforms=None):
           + " ".join(f"{r['negative_probability']:.3g}" for r in rs),
           flush=True)
     want = dict(gebal=2 * SAMPLE_KW["pre_steps"] * n, merge=0,
-                marginal_epilogue=0, sample_site=n * n)
+                marginal_epilogue=0, sample_site=n * n,
+                polish=(SAMPLE_KW["pre_steps"] * n
+                        if dtype == torch.float32 else 0))
     check(counts == want, f"sample {label}: launches {counts}, want {want} "
-          f"(K4 once per site, K1 once per interface sweep step)")
+          f"(K4 once per site, K1 once per interface sweep step, K5 once "
+          f"per float32 ladder row)")
     for J, ins, r in zip(Js, solvers, rs):
         ins.states = r["states"][:, ins.order]
         E = tt.energy_Jij(J, ins.binary_states())
@@ -1202,7 +1326,9 @@ def solver_phase(tt, torch):
     check(counts["merge"] == counts["marginal_epilogue"] == 256,
           f"solver 2048 device f32: K2/K3 launches {counts}, want one per "
           f"site (256)")
-    solver.update({k: counts[k] for k in SEARCH_KERNELS})
+    check(counts["polish"] == 2 * 16, f"solver 2048 device f32: K5 "
+          f"launches {counts['polish']}, want one per ladder row (32)")
+    solver.update({k: counts[k] for k in SEARCH_KERNELS + ("polish",)})
     ins_a = ins
 
     # (b) host search at full size, on (a)'s gauges; the wait of each
@@ -1235,7 +1361,8 @@ def solver_phase(tt, torch):
     check(counts["marginal_epilogue"] == 256 and counts["merge"] == 0,
           f"solver 2048 host f32: launches {counts}, want K3 once per site "
           f"(256) and no K2")
-    solver_host.update({k: counts[k] for k in SEARCH_KERNELS})
+    solver_host.update({k: counts[k]
+                        for k in SEARCH_KERNELS + ("polish",)})
 
     # (c) host search in float64 at full width against the device search
     # at the full expansion
@@ -1296,7 +1423,7 @@ def solver_phase(tt, torch):
                   f"solver e02 {dl} {path}: energies differ from their "
                   f"recheck by {err}")
             check(counts == dict(gebal=0, merge=0, marginal_epilogue=0,
-                                 sample_site=64),
+                                 sample_site=64, polish=0),
                   f"solver e02 {dl} {path}: launches {counts}, want K4 once "
                   f"per site")
             if dtype == torch.float64:
@@ -1520,9 +1647,10 @@ def host_pre_phase(tt, torch):
           f"host pre 2048 ud: energy {E} deg {ins.degeneracy}, want the "
           f"oracle's {orc['energy']} deg {orc['degeneracy']}")
     check(counts == dict(gebal=0, merge=256, marginal_epilogue=256,
-                         sample_site=0),
-          f"host pre 2048 ud: launches {counts}, want no K1 (host sweeps) "
-          f"and K2/K3 once per site")
+                         sample_site=0, polish=2 * 16),
+          f"host pre 2048 ud: launches {counts}, want no K1 (host sweeps), "
+          f"K2/K3 once per site and K5 once per row of the two rungs' "
+          f"float32 D=8 stacks")
 
     # (b) 'ud' then 'lr' on the host, then both searches
     ins = solver2048()
@@ -1973,7 +2101,7 @@ def main():
           f"{torch.cuda.get_device_name(0)} count "
           f"{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    names = ("gebal", "merge", "marginal", "sample")
+    names = ("gebal", "merge", "marginal", "sample", "polish")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(build.load, names))
     for name in names:
@@ -1985,6 +2113,7 @@ def main():
     floor = launch_floor_ms(torch, dev)
     print(f"launch floor (one-element kernel): {floor:.4f} ms", flush=True)
     kres = kernel_checks(tt, torch, dev, floor)
+    kres.update(polish_checks(tt, torch, floor))
 
     # phase 3: the slice through its entry points
     J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(INSTANCE)), 1 / 75)
@@ -2042,7 +2171,9 @@ def main():
            "marginal_epilogue": ("cuda", "tnax_torch/kernels/csrc/marginal.cu",
                                  "tnax/engine.py:382"),
            "sample_site": ("cuda", "tnax_torch/kernels/csrc/sample.cu",
-                           "tnax/parallel.py:1290")}
+                           "tnax/parallel.py:1290"),
+           "polish": ("cuda", "tnax_torch/kernels/csrc/polish.cu",
+                      "tnax/bmps.py:702")}
     summary = []
     for name, (route, source, replaces) in src.items():
         r = kres[name]["float32"]["B8"]

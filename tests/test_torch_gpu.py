@@ -590,7 +590,7 @@ def test_host_sampler_runs_k4_per_site(cuda):
     E = ins.gibbs_sampling(M=64, Dmax=16, seed=1)
     assert kernels.launch_counts() == dict(gebal=0, merge=0,
                                            marginal_epilogue=0,
-                                           sample_site=16)
+                                           sample_site=16, polish=0)
     np.testing.assert_allclose(tt.energy_Jij(J, ins.binary_states()), E,
                                atol=1e-9)
 
@@ -710,3 +710,309 @@ def test_nccl_mesh_of_one_card_matches_no_mesh(cuda):
     assert got["energy"] == want["energy"]
     assert got["degeneracy"] == want["degeneracy"]
     assert np.array_equal(got["states"], want["states"])
+
+
+# ---------------------------------------------------------------------------
+# K5: the ladder's variational polish
+# ---------------------------------------------------------------------------
+
+def _solver(path, side, dtype=torch.float32):
+    import tnax_torch as tt
+    J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(path)), 1 / 75)
+    return tt.Solver(mode="Ising", Nx=side, Ny=side, Nc=8, J=J, beta=3,
+                     device="cuda", dtype=dtype)
+
+
+def _polish_rows(build):
+    """The inputs of every polish that ``build()`` runs: (A0, phi_A, W,
+    conj, tol, max_sweeps) per absorbed row, captured on the card."""
+    from tnax_torch import bmps
+    rows = []
+    orig = bmps.variational_implicit
+
+    def capture(mps, phi_A, W, *, conj, tol, max_sweeps):
+        rows.append((mps.A.clone(), phi_A.clone(), W.clone(), conj, tol,
+                     max_sweeps))
+        return orig(mps, phi_A, W, conj=conj, tol=tol, max_sweeps=max_sweeps)
+
+    bmps.variational_implicit = capture
+    try:
+        build()
+    finally:
+        bmps.variational_implicit = orig
+    return rows
+
+
+@pytest.fixture(scope="module")
+def ladder_rows():
+    """Real D=8 rows in float32: the two-rung ladder (betas 1.5, 3) of
+    chimera-128 and chimera-2048 (two lanes a row, rhoT's and rhoB's,
+    conj=True), the one-rung ladder of the eight chimera-512 instances
+    (16 lanes), and chimera-128's bottom stack (conj=False). Every row
+    has exactly-zero channels at its edge bonds, and the row absorbed
+    last, whose outer legs hold one state, has them at every bond."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import os
+    from tnax_torch import precondition
+    data = os.path.join(os.path.dirname(__file__), "data")
+    out = {}
+    for label, name, side in (("c128", "chimera128_synth_s0.txt", 4),
+                              ("c2048", "chimera2048_synth_s0.txt", 16)):
+        p = _solver(os.path.join(data, name), side).problem
+        out[label] = _polish_rows(lambda: precondition.precondition_fleet(
+            [p], [1.5, 3.0], device="cuda", dtype=torch.float32))
+    ps = [_solver(os.path.join(data, f"chimera512_synth_s{s}.txt"), 8)
+          .problem for s in range(1, 9)]
+    out["c512x8"] = _polish_rows(lambda: precondition.precondition_fleet(
+        ps, [3.0], device="cuda", dtype=torch.float32))
+    ins = _solver(os.path.join(data, "chimera128_synth_s0.txt"), 4)
+    Wt = ins._context().Wt
+    out["c128_conj_false"] = _polish_rows(lambda: engine.build_rhoB(
+        Wt, Dmax=8, tolS=1e-16, tolV=1e-10, max_sweeps=20))
+    return out
+
+
+def _state_fidelity(A, B):
+    """|<A|B>| / (|A| |B|) of two batched MPS (B, L, D, d, D), per lane,
+    in float64."""
+    from tnax_torch import bmps
+    A, B = A.double(), B.double()
+    return (bmps.mps_dot(A, B).abs()
+            / torch.sqrt(bmps.mps_dot(A, A) * bmps.mps_dot(B, B)))
+
+
+def _polish_both(A0, phi_A, Wc, tol, max_sweeps):
+    """K5 and the plain polish on the same lanes, and the plain run's
+    Schmidt-vector change of every pass (passes x lanes), read from
+    bmps._alternate's left sweeps."""
+    from tnax_torch import bmps
+    got = kernels.polish_row(A0, phi_A, Wc, tol=tol, max_sweeps=max_sweeps)
+    orig, changes = bmps._alternate, []
+
+    def alternate(A, FLs, overlap, right_sweep, left_sweep, **kw):
+        def left(*args):
+            out = left_sweep(*args)
+            changes.append(out[3].tolist())
+            return out
+        return orig(A, FLs, overlap, right_sweep, left, **kw)
+
+    bmps._alternate = alternate
+    try:
+        want = kernels.polish_row_plain(A0, phi_A, Wc, tol=tol,
+                                        max_sweeps=max_sweeps)
+    finally:
+        bmps._alternate = orig
+    return got, want, changes
+
+
+def _channel_weights(A):
+    """For each site n and bond channel k of a left-canonical MPS A (B, L,
+    D, d, D): the norm of the state's part to the right of bond n + 1 on
+    channel k, sqrt(RR[n + 1][k, k]) (bmps._norm_envs), so that an
+    error e in A[:, n, :, :, k] moves the state by about e times it.
+    Returns (B, L, D)."""
+    from tnax_torch import bmps
+    RR = bmps._norm_envs(A.double())
+    return torch.stack([torch.sqrt(torch.clamp(torch.diagonal(
+        RR[n + 1], dim1=1, dim2=2), min=0.0)) for n in range(A.shape[1])],
+        dim=1)
+
+
+def _check_polish(row, max_sweeps=None):
+    """K5 against the plain polish on one captured row, lane by lane;
+    returns (sweeps of K5, of the plain polish, a list of faults).
+
+    The rule: the stop pass is float32's. Where a lane's sweeps differ,
+    the pass at which the two first decided differently, the smaller
+    count s, has to lie where float32's rounding sets the change: the
+    plain run's change after pass s is below 8 tol (tol = 32 eps), or no
+    longer shrinks by half from the pass before (its plateau, at 2.7e-5
+    to 4.3e-5 on some fleet lanes, where the 0.9 test then decides on
+    rounding noise; the plain polish of a lane alone and in its batch
+    round differently too, and stop apart there). Where the change still
+    shrinks geometrically, by half a pass or more, and is above 8 tol,
+    both sides must go on. Past that pass a lane may run on more than one
+    pass. Such a lane is compared again with both sides run to s passes.
+    Then, float32 tolerances: the states (the MPS as vectors) agree to a
+    fidelity of 1 - 1e-6, ln_state to 1e-4 absolute (|values| ~ 10-140),
+    the overlap to 1e-4 relative, and A entry by entry to 1e-3 weighted
+    by the state's weight on the entry's bond channel
+    (:func:`_channel_weights`): the column of a channel the state hardly
+    uses is float32 noise on both sides."""
+    from tnax_torch import bmps
+    A0, phi_A, W, conj, tol, ms = row
+    ms = ms if max_sweeps is None else max_sweeps
+    Wc = bmps._orient_mpo(W, conj)
+    before = kernels.polish_row.launches
+    got, want, changes = _polish_both(A0, phi_A, Wc, tol, ms)
+    assert kernels.polish_row.launches == before + 1
+    sk, sp = got[3].clone(), want[3].clone()
+    assert sk.dtype == torch.int64 and sk.device == A0.device
+    faults, capped = [], {}
+    lanes = [list(got), list(want)]
+    for z in torch.nonzero(sk != sp).flatten().tolist():
+        cap = int(min(sk[z], sp[z]))
+        d = [c[z] for c in changes[:int(sp[z])]]
+        if not (d[cap - 1] <= 8 * tol
+                or (cap >= 2 and d[cap - 1] >= 0.5 * d[cap - 2])):
+            faults.append(f"lane {z}: sweeps {int(sk[z])} vs {int(sp[z])}, "
+                          f"plain changes {d}")
+        if cap not in capped:
+            capped[cap] = _polish_both(A0, phi_A, Wc, tol, cap)[:2]
+        gz, wz = capped[cap]
+        assert int(gz[3][z]) == int(wz[3][z]) == cap
+        for side, new in zip(lanes, (gz, wz)):
+            for t, v in zip(side, new):
+                t[z] = v[z]
+    got, want = lanes
+    fid = _state_fidelity(got[0], want[0])
+    dA = (got[0] - want[0]).abs().amax(dim=(2, 3)).double()   # (B, L, k)
+    wdA = (dA * _channel_weights(want[0])).amax(dim=(1, 2))
+    dln = (got[2] - want[2]).abs()
+    dov = ((got[1] - want[1]).abs() / want[1].abs()).nan_to_num(0.0)
+    for z in range(A0.shape[0]):
+        if not (fid[z] > 1 - 1e-6 and wdA[z] <= 1e-3 and dln[z] <= 1e-4
+                and dov[z] <= 1e-4):
+            faults.append(f"lane {z}: 1 - fidelity {1 - float(fid[z]):.3g}, "
+                          f"weighted |dA| {float(wdA[z]):.3g} (|dA| "
+                          f"{float(dA[z].max()):.3g}), |d ln_state| "
+                          f"{float(dln[z]):.3g}, overlap rel "
+                          f"{float(dov[z]):.3g}")
+    if not bool(torch.isfinite(got[0]).all()):
+        faults.append("A not finite")
+    return sk, sp, faults
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", ["c128", "c2048", "c512x8",
+                                   "c128_conj_false"])
+def test_polish_kernel_matches_plain_on_ladder_rows(ladder_rows, label):
+    """K5 on every captured row of the instance's ladder (two lanes a
+    row; 16 in the fleet), against the plain polish: see
+    :func:`_check_polish` for the rule and the tolerances."""
+    rows = ladder_rows[label]
+    assert rows and all(r[0].shape[2:] == (8, 16, 8) for r in rows)
+    assert any(bool((r[0][:, :, :, :, -1] == 0).all()) for r in rows), \
+        "no row with exactly-zero channels"
+    width = {"c512x8": 16, "c128_conj_false": 1}.get(label, 2)
+    sweeps, faults, passes = [], [], [0, 0]
+    for i, row in enumerate(rows):
+        assert row[0].shape[0] == width
+        sk, sp, f = _check_polish(row)
+        sweeps.append(sk)
+        faults += [f"row {i}: {x}" for x in f]
+        passes[0] += int(sk.max())
+        passes[1] += int(sp.max())
+    assert not faults, "\n".join(faults)
+    # the most sweeps a row, as the stage clock counts them: the same
+    # passes per row within 0.5
+    assert abs(passes[0] - passes[1]) <= 0.5 * len(rows), passes
+    if label == "c512x8":
+        # the fleet's lanes stop at different passes
+        assert any(len(set(s.tolist())) > 1 for s in sweeps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", ["c128", "c2048"])
+def test_polish_kernel_one_lane(ladder_rows, label):
+    """A lane alone (B = 1) gives what it gives among others."""
+    for row in ladder_rows[label][::3]:
+        A0, phi_A, W, conj, tol, ms = row
+        one = (A0[1:], phi_A[1:], W[1:], conj, tol, ms)
+        faults = _check_polish(one)[2]
+        assert not faults, faults
+        from tnax_torch import bmps
+        Wc = bmps._orient_mpo(W, conj)
+        alone = kernels.polish_row(A0[1:], phi_A[1:], Wc[1:], tol=tol,
+                                   max_sweeps=ms)
+        both = kernels.polish_row(A0, phi_A, Wc, tol=tol, max_sweeps=ms)
+        for a, b in zip(alone, both):
+            assert torch.equal(a, b[1:])
+
+
+@pytest.mark.gpu
+def test_polish_kernel_runs_lanes_to_max_sweeps(ladder_rows):
+    """At a max_sweeps below the fleet's passes some lanes run to it and
+    others stop before: each lane ends where its own plain run ends."""
+    hits, stops, faults = 0, 0, []
+    for row in ladder_rows["c512x8"]:
+        for cap in (3, 5):
+            sk, sp, f = _check_polish(row, max_sweeps=cap)
+            faults += f
+            hits += int((sk == cap).sum())
+            stops += int((sk < cap).sum())
+    assert not faults, faults
+    assert hits > 0 and stops > 0
+
+
+@pytest.mark.gpu
+def test_polish_kernel_refuses_wrong_inputs(ladder_rows):
+    """The wrapper raises on a dtype, shape or device K5 does not take,
+    and never falls back."""
+    from tnax_torch import bmps
+    A0, phi_A, W, conj, tol, ms = ladder_rows["c128"][1]
+    Wc = bmps._orient_mpo(W, conj)
+    bad = [(A0.double(), phi_A.double(), Wc.double()),       # float64
+           (A0, phi_A, Wc.cpu()),                             # two devices
+           (A0[:, :, :4], phi_A, Wc),                         # bond 4
+           (A0, phi_A[:, :, :4, :, :4], Wc),                  # old bond 4
+           (A0[:, :, :, :8], phi_A, Wc[..., :8]),             # leg 8
+           (A0[:1], phi_A, Wc),                               # lanes
+           (A0.repeat(1, 5, 1, 1, 1)[:, :17],
+            phi_A.repeat(1, 5, 1, 1, 1)[:, :17],
+            Wc.repeat(1, 5, 1, 1, 1, 1)[:, :17])]             # 17 sites
+    before = kernels.polish_row.launches
+    for args in bad:
+        assert not kernels.polish.engages(*args)
+        with pytest.raises(ValueError):
+            kernels.polish_row(*args, tol=tol, max_sweeps=ms)
+    assert kernels.polish_row.launches == before
+    assert kernels.polish.engages(A0, phi_A, Wc)
+
+
+@pytest.mark.gpu
+def test_polish_kernel_never_syncs(ladder_rows):
+    """An unrecorded K5 polish through bmps.variational_implicit reads
+    nothing back: with CUDA sync debugging set to error, any
+    synchronizing call raises."""
+    from tnax_torch import bmps
+    A0, phi_A, W, conj, tol, ms = ladder_rows["c2048"][5]
+    mps = bmps.MPS(A=A0, lognorm=torch.zeros(A0.shape[0], device=A0.device))
+    bmps.variational_implicit(mps, phi_A, W, conj=conj, tol=tol,
+                              max_sweeps=ms)    # builds, warms up
+    torch.cuda.synchronize()
+    before = kernels.polish_row.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, overlap, sweeps = bmps.variational_implicit(
+            mps, phi_A, W, conj=conj, tol=tol, max_sweeps=ms)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.polish_row.launches == before + 1
+    assert int(sweeps.min()) >= 1
+
+
+@pytest.mark.gpu
+def test_ladder_rows_run_k5_and_the_boundary_does_not(cuda):
+    """A traced chimera-128 precondition on the card in float32: every
+    ladder row of both rungs polishes in K5 (``#polish_k5`` = rows, K5's
+    launches likewise) and ``#passes`` is the most sweeps of its rows;
+    the D=48 boundary of the search never launches K5."""
+    import os
+    from tnax_torch import search
+    ins = _solver(os.path.join(os.path.dirname(__file__), "data",
+                               "chimera128_synth_s0.txt"), 4)
+    kernels.reset_launch_counts()
+    st = {}
+    ins.precondition(path="device", stage_times=st)
+    rows = sum(v for k, v in st.items() if k.endswith("#rows"))
+    k5 = sum(v for k, v in st.items() if k.endswith("#polish_k5"))
+    passes = sum(v for k, v in st.items() if k.endswith("#passes"))
+    assert rows == 2 * 4 and k5 == rows
+    assert kernels.launch_counts()["polish"] == rows
+    assert rows <= passes <= 20 * rows
+    kernels.reset_launch_counts()
+    search.search_ground_state(ins._context(), M=64,
+                               relative_P_cutoff=1e-8, Dmax=48)
+    assert kernels.launch_counts()["polish"] == 0

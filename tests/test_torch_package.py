@@ -94,9 +94,15 @@ def test_wrappers_count_no_launch_on_cpu():
         torch.zeros((1, 3), dtype=torch.float64),
         torch.ones((1, 3), dtype=torch.bool), -30.0)[2]
     assert pmax.tolist() == [-2.0]
+    z = torch.zeros((1, 2, 8, 16, 8), dtype=torch.float64)
+    z[:, :, 0, 0, 0] = 1.0
+    Wc = torch.zeros((1, 2, 16, 16, 16, 16), dtype=torch.float64)
+    Wc[:, :, 0, 0, 0, 0] = 1.0
+    sweeps = kernels.polish_row(z, z, Wc, tol=1e-10, max_sweeps=2)[3]
+    assert sweeps.tolist() == [1]
     assert kernels.launch_counts() == dict(gebal=0, merge=0,
                                            marginal_epilogue=0,
-                                           sample_site=0)
+                                           sample_site=0, polish=0)
 
 
 def _run_smoke(cwd):

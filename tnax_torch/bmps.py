@@ -10,7 +10,9 @@ appear as exactly-zero channels, as in tnax. ``lax.scan`` over sites
 becomes a Python loop. The variational ``while_loop`` becomes a host loop
 that reads one flag per sweep; as under tnax's vmap, a lane whose stop
 condition holds keeps its state while the others sweep on, so every lane
-ends where its unbatched run would.
+ends where its unbatched run would. The zip-up's polish at the balancing
+ladder's shapes runs instead in one launch of kernel K5
+(``kernels.polish``), each lane to its own stop on the card.
 
 Two row absorptions: the zip-up (:func:`compress_apply`, the default of
 the boundary stacks) and the reference's fat path (:func:`apply_mpo`
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from . import config
+from .kernels import polish as _polish
 
 
 class MPS(NamedTuple):
@@ -588,9 +591,52 @@ def variational_implicit(mps: MPS, phi_A: torch.Tensor, W: torch.Tensor, *,
     enters left-canonical (zip-up output). Each instance stops on its own
     rule (see :func:`_alternate`). Returns (MPS, overlap (B,), sweeps
     (B,) int64).
+
+    Float32 CUDA tensors at K5's shapes (``kernels.polish.engages``: the
+    balancing ladder's bonds of 8 and legs of 16) run the whole polish in
+    one launch of K5, each lane to its own stop on the card; everything
+    else runs :func:`variational_implicit_plain`.
     """
     Wc = _orient_mpo(W, conj)
-    A0 = mps.A
+    if _polish.engages(mps.A, phi_A, Wc):
+        A, overlap, ln_state, sweeps = _polish_k5(mps.A, phi_A, Wc, tol,
+                                                  max_sweeps)
+    else:
+        A, overlap, ln_state, sweeps = variational_implicit_plain(
+            mps.A, phi_A, Wc, tol=tol, max_sweeps=max_sweeps)
+    return MPS(A=A, lognorm=mps.lognorm + ln_state), overlap, sweeps
+
+
+def _polish_k5(A0, phi_A, Wc, tol, max_sweeps):
+    """K5's polish with the stage clock's counters: when a clock records,
+    ``variational_s`` runs from a read before the launch to the read of
+    the most sweeps any lane ran (``passes``) after it, and
+    ``polish_k5`` counts the row; otherwise nothing waits."""
+    rec = config.recording()
+    if rec is None:
+        return _polish.polish_row(A0, phi_A, Wc, tol=tol,
+                                  max_sweeps=max_sweeps)
+    rec.read(_sync, A0.device)
+    start = rec.read_end
+    out = _polish.polish_row(A0, phi_A, Wc, tol=tol, max_sweeps=max_sweeps)
+    rec.count("passes", rec.read(int, out[3].max()))
+    rec.count("variational_s", rec.read_end - start)
+    rec.count("polish_k5", 1)
+    return out
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def variational_implicit_plain(A0, phi_A, Wc, *, tol: float,
+                               max_sweeps: int):
+    """The polish of :func:`variational_implicit` in plain torch, for any
+    shapes, dtypes and devices: A0 (B, L, Dn, du, Dn) left-canonical,
+    phi_A (B, L, Do, d, Do), Wc (B, L, l, d, r, u) oriented. One host
+    read a pass (:func:`_alternate`). Returns (A, overlap (B,), ln_state
+    (B,), sweeps (B,) int64); K5 computes the same."""
     B, L, Dn, du, _ = A0.shape
     Do, lh = phi_A.shape[2], Wc.shape[2]
     dtype, device = A0.dtype, A0.device
@@ -661,10 +707,8 @@ def variational_implicit(mps: MPS, phi_A: torch.Tensor, W: torch.Tensor, *,
             FLs.append(FL)
         return A, S, FLs, diff, FL[:, 0, 0, 0] * torch.exp2(ln), lnstate
 
-    A, overlap, ln_state, sweeps = _alternate(
-        A0, FLs, overlap, right_sweep, left_sweep, tol=tol,
-        max_sweeps=max_sweeps)
-    return MPS(A=A, lognorm=mps.lognorm + ln_state), overlap, sweeps
+    return _alternate(A0, FLs, overlap, right_sweep, left_sweep, tol=tol,
+                      max_sweeps=max_sweeps)
 
 
 def compress_apply(mps: MPS, W: torch.Tensor, Dmax: int, *, conj: bool,

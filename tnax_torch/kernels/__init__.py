@@ -5,6 +5,7 @@ K1     ``gebal.gebal_scale``                CUDA C++ (csrc/gebal.cu)
 K2     ``merge.merge_segments``             CUDA C++ (csrc/merge.cu)
 K3     ``marginal.marginal_epilogue``       CUDA C++ (csrc/marginal.cu)
 K4     ``sample.sample_site``               CUDA C++ (csrc/sample.cu)
+K5     ``polish.polish_row``                CUDA C++ (csrc/polish.cu)
 =====  ===================================  ==========================
 
 K3 and K4 share the marginal epilogue, ``csrc/epilogue.cuh``. Each
@@ -16,11 +17,12 @@ integer attribute ``launches``.
 from .gebal import gebal_scale, gebal_scale_plain
 from .marginal import marginal_epilogue, marginal_epilogue_plain
 from .merge import merge_segments, merge_segments_plain
+from .polish import polish_row, polish_row_plain
 from .sample import sample_draw_plain, sample_site, sample_site_plain
 
 WRAPPERS = {"gebal": gebal_scale, "merge": merge_segments,
             "marginal_epilogue": marginal_epilogue,
-            "sample_site": sample_site}
+            "sample_site": sample_site, "polish": polish_row}
 
 
 def reset_launch_counts() -> None:
@@ -34,6 +36,7 @@ def launch_counts() -> dict:
 
 __all__ = ["gebal_scale", "gebal_scale_plain", "marginal_epilogue",
            "marginal_epilogue_plain", "merge_segments",
-           "merge_segments_plain", "sample_draw_plain", "sample_site",
+           "merge_segments_plain", "polish_row", "polish_row_plain",
+           "sample_draw_plain", "sample_site",
            "sample_site_plain", "WRAPPERS", "reset_launch_counts",
            "launch_counts"]
