@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with one CUDA card. It
-  1. prints the card and its power limit and builds the five kernels, one
+  1. prints the card and its power limit and builds the six kernels, one
      nvcc per source, all at once;
   2. compares each kernel with its plain PyTorch version on the card, in
      float32 and float64, at the single search's shapes (B = 1) and the
@@ -22,7 +22,10 @@ Run from the root of a checkout on a machine with one CUDA card. It
      the keys, the time of the sort alone; K5 (the ladder's variational
      polish) in float32 on every row of the chimera-2048 ladder (2 lanes)
      and of the chimera-512 fleet's (16 lanes) against the plain polish,
-     with the whole ladder's polish time of both (``polish_checks``);
+     with the whole ladder's polish time of both (``polish_checks``); K6
+     (the ladder's zip-up and truncation sweep) likewise against the plain
+     steps on the same rows, with a row's wrapper, device and plain times
+     and the bound (``zipup_checks``);
   3. drives the flagship ground-state search through the public entry
      points (load_Jij -> Solver -> parallel.flagship_search_gs) on the
      committed synthetic chimera-2048 instance at M=1024, D=32, cutoff
@@ -534,28 +537,41 @@ def kernel_checks(tt, torch, dev, floor):
     return out
 
 
-def polish_rows(tt, torch, paths, side, betas):
-    """The polish inputs (A0, phi_A, Wc, tol, max_sweeps) of every row of
-    the float32 'ud' ladder of the instances in ``paths`` (one batch),
-    captured on the card."""
+def ladder_rows(tt, torch, paths, side, betas):
+    """The inputs of every row of the float32 'ud' ladder of the
+    instances in ``paths`` (one batch), captured on the card: the
+    polish's (A0, phi_A, Wc, tol, max_sweeps), K5's, and the absorption's
+    (A, lognorm, Wc, omega, tolS), K6's."""
     from tnax_torch import bmps, precondition
     problems = [tt.Solver(mode="Ising", Nx=side, Ny=side, Nc=8,
                           J=tt.round_Jij(tt.Jij_f2p(tt.load_Jij(p)), 1 / 75),
                           beta=3, device="cuda", dtype=torch.float32).problem
                 for p in paths]
-    rows, orig = [], bmps.variational_implicit
+    rows = {"polish": [], "zipup": []}
+    orig, orig_apply = bmps.variational_implicit, bmps.compress_apply
 
     def capture(mps, phi_A, W, *, conj, tol, max_sweeps):
-        rows.append((mps.A.clone(), phi_A.clone(),
-                     bmps._orient_mpo(W, conj).clone(), tol, max_sweeps))
+        rows["polish"].append((mps.A.clone(), phi_A.clone(),
+                               bmps._orient_mpo(W, conj).clone(), tol,
+                               max_sweeps))
         return orig(mps, phi_A, W, conj=conj, tol=tol, max_sweeps=max_sweeps)
 
+    def capture_apply(mps, W, Dmax, *, conj, tolS, **kw):
+        Wc = bmps._orient_mpo(W, conj)
+        rows["zipup"].append((mps.A.clone(), mps.lognorm.clone(), Wc.clone(),
+                              bmps._zipup_sketch(mps.A, Wc, 2 * Dmax, True,
+                                                 kw.get("omega")),
+                              max(tolS, torch.finfo(mps.A.dtype).eps)))
+        return orig_apply(mps, W, Dmax, conj=conj, tolS=tolS, **kw)
+
     bmps.variational_implicit = capture
+    bmps.compress_apply = capture_apply
     try:
         precondition.precondition_fleet(problems, betas, device="cuda",
                                         dtype=torch.float32)
     finally:
         bmps.variational_implicit = orig
+        bmps.compress_apply = orig_apply
     return rows
 
 
@@ -587,7 +603,7 @@ def polish_checks(tt, torch, floor):
              ("B8", [f + ".txt" for f in FLEET], 8, [3.0]))
     out = {}
     for label, paths, side, betas in cases:
-        rows = polish_rows(tt, torch, paths, side, betas)
+        rows = ladder_rows(tt, torch, paths, side, betas)["polish"]
         tot = {"k5": 0.0, "plain": 0.0}
         passes = {"k5": 0, "plain": 0}
         unequal = apart = 0
@@ -647,6 +663,86 @@ def polish_checks(tt, torch, floor):
               f"plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']})  launch floor {floor:.4f} ms  max_abs_err "
               f"{r['max_abs_err']:.3g}", flush=True)
+    return out
+
+
+def zipup_ops(L):
+    """Floating-point operations of K6 on one lane of L sites, two per
+    FMA: per site the 128 x 256 x 256 product of T A with W and the T A
+    slices, the sketch's six 256 x 128 x 48 products, the site's U
+    (256 x 48 x 16) and the truncation sweep's small contractions; the
+    five sketch QRs and the two canonizations' QRs (factorization and Q,
+    4 m n^2 - 4 n^3 / 3 each). The Jacobi SVDs are left out: their sweeps
+    depend on the data, so this is a floor."""
+    def qr(m, n):
+        return 4 * m * n * n - 4 * n ** 3 // 3
+    fma = (128 * 256 * 256 + 16 * 2048 * 8 + 6 * 256 * 128 * 48
+           + 256 * 48 * 16 + 4096 * 16 + 1024 * 16 + 1024 * 8)
+    return L * (2 * fma + 3 * qr(256, 48) + 2 * qr(128, 48) + qr(256, 16)
+                + qr(128, 8))
+
+
+def zipup_checks(tt, torch, floor):
+    """Phase 2, K6: the ladder's zip-up and truncation sweep in one
+    launch against the plain steps on the card, float32, on every row of
+    the chimera-2048 ladder (two rungs, two lanes a row: B1) and of the
+    eight chimera-512 instances' (one rung, 16 lanes: B8): the
+    right-canonized input to 1e-5 and its lognorm to 1e-4, the truncated
+    zip-up as a state to a fidelity of 1 - 1e-5; the whole ladder's time
+    of both (CUDA events around each call); then on the middle row the
+    kernel's wrapper and device times, the plain version's and the bound
+    (:func:`zipup_ops` at the FP32 rate: K6 uses one SM a lane)."""
+    from tnax_torch import bmps, kernels
+    cases = (("B1", [INSTANCE], 16, [1.5, 3.0]),
+             ("B8", [f + ".txt" for f in FLEET], 8, [3.0]))
+    out = {}
+    for label, paths, side, betas in cases:
+        rows = ladder_rows(tt, torch, paths, side, betas)["zipup"]
+        tot = {"k6": 0.0, "plain": 0.0}
+        infid = dphi = dln = 0.0
+        for A, ln, Wc, om, tolS in rows:
+            res = {}
+            for side_, fn in (("k6", kernels.zipup_row),
+                              ("plain", kernels.zipup_row_plain)):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                res[side_] = fn(A, ln, Wc, om, tolS=tolS)
+                b.record()
+                b.synchronize()
+                tot[side_] += a.elapsed_time(b)
+            got, want = res["k6"], res["plain"]
+            x, y = got[2].double(), want[2].double()
+            fid = (bmps.mps_dot(x, y).abs()
+                   / torch.sqrt(bmps.mps_dot(x, x) * bmps.mps_dot(y, y)))
+            infid = max(infid, float((1 - fid).max()))
+            dphi = max(dphi, float((got[0] - want[0]).abs().max()))
+            dln = max(dln, float((got[1] - want[1]).abs().max()))
+        check(infid < 1e-5 and dphi <= 1e-5 and dln <= 1e-4,
+              f"K6 {label}: 1 - fidelity {infid:.3g}, |d phi| {dphi:.3g}, "
+              f"|d lognorm| {dln:.3g}")
+        A, ln, Wc, om, tolS = rows[len(rows) // 2]
+        B, L = A.shape[:2]
+        got = kernels.zipup_row(A, ln, Wc, om, tolS=tolS)
+        want = kernels.zipup_row_plain(A, ln, Wc, om, tolS=tolS)
+        moved = nbytes(A, Wc, om, got[0], got[2]) + 2 * B * L * 4096 * 4
+        compare_and_time(
+            out, ("zipup", label), "float32", got[0], want[0],
+            lambda: kernels.zipup_row(A, ln, Wc, om, tolS=tolS),
+            lambda: kernels.zipup_row_plain(A, ln, Wc, om, tolS=tolS),
+            moved, B * zipup_ops(L), torch,
+            extra=dict(rows=len(rows), lanes=B, sites=L,
+                       ladder_k6_ms=tot["k6"], ladder_plain_ms=tot["plain"],
+                       worst_infidelity=infid))
+        r = out["zipup"]["float32"][label]
+        print(f"kernel zipup {label}: {len(rows)} rows x {B} lanes, L={L}: "
+              f"the ladder's zip-up K6 {tot['k6']:.1f} ms vs plain "
+              f"{tot['plain']:.1f} ms; worst 1 - fidelity {infid:.3g}, "
+              f"|d phi| {dphi:.3g}; a row: wrapper {r['ms']:.3f} ms  device "
+              f"{r['device_ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']})  launch floor "
+              f"{floor:.4f} ms  max_abs_err {r['max_abs_err']:.3g}",
+              flush=True)
     return out
 
 
@@ -777,10 +873,11 @@ def fleet_phase(tt, torch):
         for label in labels:
             runs[label] = fleet_run(tt, torch, Js, oracles, dtype, label)
             _, _, rs, Es, counts = runs[label]
-            # pre_steps = 1; K5 polishes each float32 ladder row
+            # pre_steps = 1; K6 and K5 run each float32 ladder row
+            k56 = o["Ny"] if dtype == torch.float32 else 0
             want = dict(gebal=2 * o["Nx"], merge=o["Nx"] * o["Ny"],
                         marginal_epilogue=o["Nx"] * o["Ny"], sample_site=0,
-                        polish=o["Ny"] if dtype == torch.float32 else 0)
+                        polish=k56, zipup=k56)
             check(counts == want, f"fleet {label}: launches {counts}, "
                   f"want {want} (one per site, sweep step or ladder row "
                   f"per batch)")
@@ -846,13 +943,13 @@ def sample_run(tt, torch, Js, n, dtype, label, M, seed=0, uniforms=None):
           + "  negative_probability "
           + " ".join(f"{r['negative_probability']:.3g}" for r in rs),
           flush=True)
+    k56 = SAMPLE_KW["pre_steps"] * n if dtype == torch.float32 else 0
     want = dict(gebal=2 * SAMPLE_KW["pre_steps"] * n, merge=0,
-                marginal_epilogue=0, sample_site=n * n,
-                polish=(SAMPLE_KW["pre_steps"] * n
-                        if dtype == torch.float32 else 0))
+                marginal_epilogue=0, sample_site=n * n, polish=k56,
+                zipup=k56)
     check(counts == want, f"sample {label}: launches {counts}, want {want} "
-          f"(K4 once per site, K1 once per interface sweep step, K5 once "
-          f"per float32 ladder row)")
+          f"(K4 once per site, K1 once per interface sweep step, K6 and K5 "
+          f"once per float32 ladder row)")
     for J, ins, r in zip(Js, solvers, rs):
         ins.states = r["states"][:, ins.order]
         E = tt.energy_Jij(J, ins.binary_states())
@@ -1326,9 +1423,11 @@ def solver_phase(tt, torch):
     check(counts["merge"] == counts["marginal_epilogue"] == 256,
           f"solver 2048 device f32: K2/K3 launches {counts}, want one per "
           f"site (256)")
-    check(counts["polish"] == 2 * 16, f"solver 2048 device f32: K5 "
-          f"launches {counts['polish']}, want one per ladder row (32)")
-    solver.update({k: counts[k] for k in SEARCH_KERNELS + ("polish",)})
+    check(counts["polish"] == counts["zipup"] == 2 * 16, f"solver 2048 "
+          f"device f32: K5 launches {counts['polish']}, K6 "
+          f"{counts['zipup']}, want one each per ladder row (32)")
+    solver.update({k: counts[k]
+                   for k in SEARCH_KERNELS + ("polish", "zipup")})
     ins_a = ins
 
     # (b) host search at full size, on (a)'s gauges; the wait of each
@@ -1362,7 +1461,7 @@ def solver_phase(tt, torch):
           f"solver 2048 host f32: launches {counts}, want K3 once per site "
           f"(256) and no K2")
     solver_host.update({k: counts[k]
-                        for k in SEARCH_KERNELS + ("polish",)})
+                        for k in SEARCH_KERNELS + ("polish", "zipup")})
 
     # (c) host search in float64 at full width against the device search
     # at the full expansion
@@ -1423,7 +1522,7 @@ def solver_phase(tt, torch):
                   f"solver e02 {dl} {path}: energies differ from their "
                   f"recheck by {err}")
             check(counts == dict(gebal=0, merge=0, marginal_epilogue=0,
-                                 sample_site=64, polish=0),
+                                 sample_site=64, polish=0, zipup=0),
                   f"solver e02 {dl} {path}: launches {counts}, want K4 once "
                   f"per site")
             if dtype == torch.float64:
@@ -1646,11 +1745,13 @@ def host_pre_phase(tt, torch):
           and ins.degeneracy == orc["degeneracy"],
           f"host pre 2048 ud: energy {E} deg {ins.degeneracy}, want the "
           f"oracle's {orc['energy']} deg {orc['degeneracy']}")
+    rows = stages.get("ud builds#rows", 0)
     check(counts == dict(gebal=0, merge=256, marginal_epilogue=256,
-                         sample_site=0, polish=2 * 16),
-          f"host pre 2048 ud: launches {counts}, want no K1 (host sweeps), "
-          f"K2/K3 once per site and K5 once per row of the two rungs' "
-          f"float32 D=8 stacks")
+                         sample_site=0, polish=2 * 16, zipup=2 * 16)
+          and counts["zipup"] == rows,
+          f"host pre 2048 ud: launches {counts}, rows built {rows}, want no "
+          f"K1 (host sweeps), K2/K3 once per site and K6 and K5 once per "
+          f"row of the two rungs' float32 D=8 stacks")
 
     # (b) 'ud' then 'lr' on the host, then both searches
     ins = solver2048()
@@ -2101,7 +2202,7 @@ def main():
           f"{torch.cuda.get_device_name(0)} count "
           f"{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    names = ("gebal", "merge", "marginal", "sample", "polish")
+    names = ("gebal", "merge", "marginal", "sample", "polish", "zipup")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(build.load, names))
     for name in names:
@@ -2114,6 +2215,7 @@ def main():
     print(f"launch floor (one-element kernel): {floor:.4f} ms", flush=True)
     kres = kernel_checks(tt, torch, dev, floor)
     kres.update(polish_checks(tt, torch, floor))
+    kres.update(zipup_checks(tt, torch, floor))
 
     # phase 3: the slice through its entry points
     J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(INSTANCE)), 1 / 75)
@@ -2173,7 +2275,9 @@ def main():
            "sample_site": ("cuda", "tnax_torch/kernels/csrc/sample.cu",
                            "tnax/parallel.py:1290"),
            "polish": ("cuda", "tnax_torch/kernels/csrc/polish.cu",
-                      "tnax/bmps.py:702")}
+                      "tnax/bmps.py:702"),
+           "zipup": ("cuda", "tnax_torch/kernels/csrc/zipup.cu",
+                     "tnax/bmps.py:833")}
     summary = []
     for name, (route, source, replaces) in src.items():
         r = kres[name]["float32"]["B8"]

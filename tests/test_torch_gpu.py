@@ -590,7 +590,8 @@ def test_host_sampler_runs_k4_per_site(cuda):
     E = ins.gibbs_sampling(M=64, Dmax=16, seed=1)
     assert kernels.launch_counts() == dict(gebal=0, merge=0,
                                            marginal_epilogue=0,
-                                           sample_site=16, polish=0)
+                                           sample_site=16, polish=0,
+                                           zipup=0)
     np.testing.assert_allclose(tt.energy_Jij(J, ins.binary_states()), E,
                                atol=1e-9)
 
@@ -723,23 +724,33 @@ def _solver(path, side, dtype=torch.float32):
                      device="cuda", dtype=dtype)
 
 
-def _polish_rows(build):
+def _polish_rows(build, zipups=None):
     """The inputs of every polish that ``build()`` runs: (A0, phi_A, W,
-    conj, tol, max_sweeps) per absorbed row, captured on the card."""
+    conj, tol, max_sweeps) per absorbed row, captured on the card; with a
+    list ``zipups``, also each row's absorption inputs (A, lognorm, W,
+    conj, tolS) into it."""
     from tnax_torch import bmps
     rows = []
-    orig = bmps.variational_implicit
+    orig, orig_apply = bmps.variational_implicit, bmps.compress_apply
 
     def capture(mps, phi_A, W, *, conj, tol, max_sweeps):
         rows.append((mps.A.clone(), phi_A.clone(), W.clone(), conj, tol,
                      max_sweeps))
         return orig(mps, phi_A, W, conj=conj, tol=tol, max_sweeps=max_sweeps)
 
+    def capture_apply(mps, W, Dmax, *, conj, tolS, **kw):
+        zipups.append((mps.A.clone(), mps.lognorm.clone(), W.clone(), conj,
+                       tolS))
+        return orig_apply(mps, W, Dmax, conj=conj, tolS=tolS, **kw)
+
     bmps.variational_implicit = capture
+    if zipups is not None:
+        bmps.compress_apply = capture_apply
     try:
         build()
     finally:
         bmps.variational_implicit = orig
+        bmps.compress_apply = orig_apply
     return rows
 
 
@@ -756,20 +767,24 @@ def ladder_rows():
     import os
     from tnax_torch import precondition
     data = os.path.join(os.path.dirname(__file__), "data")
-    out = {}
+    out = {"zipup": {}}
+    zipups = out["zipup"]
     for label, name, side in (("c128", "chimera128_synth_s0.txt", 4),
                               ("c2048", "chimera2048_synth_s0.txt", 16)):
         p = _solver(os.path.join(data, name), side).problem
         out[label] = _polish_rows(lambda: precondition.precondition_fleet(
-            [p], [1.5, 3.0], device="cuda", dtype=torch.float32))
+            [p], [1.5, 3.0], device="cuda", dtype=torch.float32),
+            zipups.setdefault(label, []))
     ps = [_solver(os.path.join(data, f"chimera512_synth_s{s}.txt"), 8)
           .problem for s in range(1, 9)]
     out["c512x8"] = _polish_rows(lambda: precondition.precondition_fleet(
-        ps, [3.0], device="cuda", dtype=torch.float32))
+        ps, [3.0], device="cuda", dtype=torch.float32),
+        zipups.setdefault("c512x8", []))
     ins = _solver(os.path.join(data, "chimera128_synth_s0.txt"), 4)
     Wt = ins._context().Wt
     out["c128_conj_false"] = _polish_rows(lambda: engine.build_rhoB(
-        Wt, Dmax=8, tolS=1e-16, tolV=1e-10, max_sweeps=20))
+        Wt, Dmax=8, tolS=1e-16, tolV=1e-10, max_sweeps=20),
+        zipups.setdefault("c128_conj_false", []))
     return out
 
 
@@ -1016,3 +1031,183 @@ def test_ladder_rows_run_k5_and_the_boundary_does_not(cuda):
     search.search_ground_state(ins._context(), M=64,
                                relative_P_cutoff=1e-8, Dmax=48)
     assert kernels.launch_counts()["polish"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K6: the ladder's zip-up and truncation sweep
+# ---------------------------------------------------------------------------
+
+def _zipup_args(row):
+    """K6's arguments (A, lognorm, Wc, omega) and tolS of a captured
+    absorption, as bmps.compress_apply hands them over."""
+    from tnax_torch import bmps
+    A, ln, W, conj, tolS = row
+    Wc = bmps._orient_mpo(W, conj)
+    omega = bmps._zipup_sketch(A, Wc, 16, True, None)
+    return (A, ln, Wc, omega), max(tolS, torch.finfo(A.dtype).eps)
+
+
+def _check_zipup(row):
+    """K6 against the plain three steps (``kernels.zipup_row_plain``, on
+    the card) on one captured row, lane by lane; returns a list of
+    faults. Float32 tolerances:
+
+    - the right-canonized input phi entry by entry to 1e-5 and its
+      lognorm to 1e-4 absolute (|values| up to ~300): the same
+      Householder QR with qr_fixed's signs, which makes it unique, in
+      another order of operations than cuSOLVER's;
+    - the truncated zip-up A0 as a state (the MPS as a vector) to a
+      fidelity of 1 - 1e-5: its site tensors are fixed only up to the
+      gauge of each bond, and K6's one-sided Jacobi and cuSOLVER's gesvdj
+      rotate differently inside near-degenerate singular values, so the
+      entries may differ where the state does not;
+    - ``disc`` to 1e-4 relative or 1e-6 absolute, or its square to 128
+      eps absolute, against the plain steps in float64 on the same
+      inputs: the zip-up's part is sqrt(frob2 - kept2) / S0, the
+      difference of two float32 sums of squares (Gm's 32,768 entries and
+      the kept singular values), each of order frob2 / S0^2 (up to about
+      ten here) and each rounded to some eps of itself, so disc^2 carries
+      tens of eps (K6 read up to 38 against float64); where little is
+      discarded, disc is that noise (1e-4 to 1e-3). The plain float32
+      steps on the card carry more of it (up to 425 eps in disc^2 on the
+      fleet's rows: cuSOLVER's batched Jacobi resolves the core's
+      singular values less finely), so they are no reference for it.
+    """
+    args, tolS = _zipup_args(row)
+    before = kernels.zipup_row.launches
+    got = kernels.zipup_row(*args, tolS=tolS)
+    assert kernels.zipup_row.launches == before + 1
+    want = kernels.zipup_row_plain(*args, tolS=tolS)
+    want64 = kernels.zipup_row_plain(*(t.double() for t in args), tolS=tolS)
+    eps = torch.finfo(torch.float32).eps
+    fid = _state_fidelity(got[2], want[2])
+    dphi = (got[0] - want[0]).abs().amax(dim=(1, 2, 3, 4))
+    dln = (got[1] - want[1]).abs()
+    dd, wd = got[3].double(), want64[3]
+    disc_ok = (((dd - wd).abs() <= 1e-4 * wd.abs())
+               | ((dd - wd).abs() <= 1e-6)
+               | ((dd * dd - wd * wd).abs() <= 128 * eps))
+    faults = []
+    for z in range(args[0].shape[0]):
+        if not (dphi[z] <= 1e-5 and dln[z] <= 1e-4 and fid[z] > 1 - 1e-5
+                and disc_ok[z]):
+            faults.append(f"lane {z}: |d phi| {float(dphi[z]):.3g}, |d ln| "
+                          f"{float(dln[z]):.3g}, 1 - fidelity "
+                          f"{1 - float(fid[z]):.3g}, disc {float(dd[z]):.6g}"
+                          f" vs {float(wd[z]):.6g}")
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        faults.append("not finite")
+    return faults
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", ["c128", "c2048", "c512x8",
+                                   "c128_conj_false"])
+def test_zipup_kernel_matches_plain_on_ladder_rows(ladder_rows, label):
+    """K6 on every captured row absorption of the instance's ladder (two
+    lanes a row; 16 in the fleet), against the plain three steps on the
+    card, one launch a row: see :func:`_check_zipup` for the
+    tolerances."""
+    rows = ladder_rows["zipup"][label]
+    assert len(rows) == len(ladder_rows[label])
+    assert all(r[0].shape[2:] == (8, 16, 8) for r in rows)
+    faults = []
+    for i, row in enumerate(rows):
+        A, _, Wc, omega = _zipup_args(row)[0]
+        assert kernels.zipup.engages(A, Wc, omega)
+        faults += [f"row {i}: {x}" for x in _check_zipup(row)]
+    assert not faults, "\n".join(faults)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", ["c128", "c2048"])
+def test_zipup_kernel_one_lane(ladder_rows, label):
+    """A lane alone (B = 1) gives what it gives among others, bit for
+    bit, and agrees with the plain steps."""
+    for row in ladder_rows["zipup"][label][::3]:
+        (A, ln, Wc, omega), tolS = _zipup_args(row)
+        one = (A[1:], ln[1:], row[2][1:], row[3], row[4])
+        assert not _check_zipup(one)
+        alone = kernels.zipup_row(A[1:], ln[1:], Wc[1:], omega, tolS=tolS)
+        both = kernels.zipup_row(A, ln, Wc, omega, tolS=tolS)
+        for a, b in zip(alone, both):
+            assert torch.equal(a, b[1:])
+
+
+@pytest.mark.gpu
+def test_zipup_kernel_refuses_wrong_inputs(ladder_rows):
+    """The wrapper raises on a dtype, shape or device K6 does not take,
+    and never falls back."""
+    (A, ln, Wc, omega), tolS = _zipup_args(ladder_rows["zipup"]["c128"][1])
+    L = A.shape[1]
+    bad = [(A.double(), ln.double(), Wc.double(), omega.double()),  # f64
+           (A, ln, Wc.cpu(), omega),                           # two devices
+           (A[:, :, :4, :, :4], ln, Wc, omega),                # bond 4
+           (A[:, :, :, :8], ln, Wc[..., :8, :, :], omega),     # leg 8
+           (A[:1], ln[:1], Wc, omega),                         # lanes
+           (A, ln, Wc, omega[..., :32]),                       # sketch rank
+           (A, ln, Wc, omega[:L - 1]),                         # sketch sites
+           (A.repeat(1, 5, 1, 1, 1)[:, :17], ln,
+            Wc.repeat(1, 5, 1, 1, 1, 1)[:, :17],
+            omega.repeat(5, 1, 1)[:17])]                       # 17 sites
+    before = kernels.zipup_row.launches
+    for args in bad:
+        assert not kernels.zipup.engages(args[0], args[2], args[3])
+        with pytest.raises(ValueError):
+            kernels.zipup_row(*args, tolS=tolS)
+    with pytest.raises(ValueError):                            # lognorm
+        kernels.zipup_row(A, ln[:1], Wc, omega, tolS=tolS)
+    assert kernels.zipup_row.launches == before
+    assert kernels.zipup.engages(A, Wc, omega)
+
+
+@pytest.mark.gpu
+def test_ladder_build_never_syncs(cuda):
+    """An unrecorded ladder build at chimera-2048's shapes (both D=8
+    stacks, 2 lanes, 16 rows of 16 sites) through engine.build_rho_both
+    reads nothing back: with CUDA sync debugging set to error, any
+    synchronizing call raises. Each row is one K6 and one K5 launch."""
+    import os
+    ins = _solver(os.path.join(os.path.dirname(__file__), "data",
+                               "chimera2048_synth_s0.txt"), 16)
+    Wt = ins._context().Wt
+    kw = dict(Dmax=8, tolS=1e-16, tolV=1e-10, max_sweeps=20)
+    engine.build_rho_both(Wt, **kw)     # builds, warms up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rhoT, rhoB = engine.build_rho_both(Wt, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = kernels.launch_counts()
+    assert counts["zipup"] == counts["polish"] == 16
+    assert bool(torch.isfinite(rhoT).all()) and bool(torch.isfinite(rhoB).all())
+
+
+@pytest.mark.gpu
+def test_ladder_rows_run_k6_and_the_boundary_does_not(cuda):
+    """A traced chimera-128 precondition on the card in float32: every
+    ladder row of both rungs runs K6 (``#zipup_k6`` = rows = K6's
+    launches, beside K5's); the D=48 boundary of the search never
+    launches K6."""
+    import os
+    from tnax_torch import search
+    ins = _solver(os.path.join(os.path.dirname(__file__), "data",
+                               "chimera128_synth_s0.txt"), 4)
+    kernels.reset_launch_counts()
+    st = {}
+    ins.precondition(path="device", stage_times=st)
+    rows = sum(v for k, v in st.items() if k.endswith("#rows"))
+    k6 = sum(v for k, v in st.items() if k.endswith("#zipup_k6"))
+    assert rows == 2 * 4 and k6 == rows
+    assert st["ladder/build#zipup_k6"] == st["ladder/build#rows"]
+    assert kernels.launch_counts()["zipup"] == \
+        kernels.launch_counts()["polish"] == rows
+    kernels.reset_launch_counts()
+    st = {}
+    search.search_ground_state(ins._context(), M=64,
+                               relative_P_cutoff=1e-8, Dmax=48,
+                               stage_times=st)
+    assert kernels.launch_counts()["zipup"] == 0
+    assert not any(k.endswith("#zipup_k6") for k in st)

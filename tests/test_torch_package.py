@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import tnax_torch
-from tnax_torch import kernels, native
+from tnax_torch import bmps, kernels, native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMPORT = re.compile(r"^\s*(import|from)\s+(jax|tnax)\b")
@@ -100,9 +100,13 @@ def test_wrappers_count_no_launch_on_cpu():
     Wc[:, :, 0, 0, 0, 0] = 1.0
     sweeps = kernels.polish_row(z, z, Wc, tol=1e-10, max_sweeps=2)[3]
     assert sweeps.tolist() == [1]
+    omega = bmps.sketch_omega(2, 128, 48, torch.float64, torch.device("cpu"))
+    A0 = kernels.zipup_row(z, torch.zeros(1, dtype=torch.float64), Wc,
+                           omega, tolS=1e-12)[2]
+    assert A0.shape == (1, 2, 8, 16, 8)
     assert kernels.launch_counts() == dict(gebal=0, merge=0,
                                            marginal_epilogue=0,
-                                           sample_site=0, polish=0)
+                                           sample_site=0, polish=0, zipup=0)
 
 
 def _run_smoke(cwd):

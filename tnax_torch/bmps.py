@@ -10,8 +10,9 @@ appear as exactly-zero channels, as in tnax. ``lax.scan`` over sites
 becomes a Python loop. The variational ``while_loop`` becomes a host loop
 that reads one flag per sweep; as under tnax's vmap, a lane whose stop
 condition holds keeps its state while the others sweep on, so every lane
-ends where its unbatched run would. The zip-up's polish at the balancing
-ladder's shapes runs instead in one launch of kernel K5
+ends where its unbatched run would. At the balancing ladder's shapes a
+row's zip-up and truncation sweep run instead in one launch of kernel K6
+(``kernels.zipup``) and its polish in one launch of K5
 (``kernels.polish``), each lane to its own stop on the card.
 
 Two row absorptions: the zip-up (:func:`compress_apply`, the default of
@@ -42,6 +43,7 @@ import torch
 
 from . import config
 from .kernels import polish as _polish
+from .kernels import zipup as _zipup
 
 
 class MPS(NamedTuple):
@@ -510,6 +512,28 @@ def check_rsvd(rsvd):
                      f"(the 'bf16' and 'wide' sketches are not ported)")
 
 
+def _zipup_sketch(A, Wc, Dmax, rsvd, omega):
+    """The sketch (L, n, k) that the zip-up of A (B, L, D, d, D) by the
+    oriented row Wc at bond Dmax truncates with, on A's device and in its
+    dtype; None where it takes the exact SVD (``rsvd`` off, or a core
+    under twice the sketch's rank: tnax's rule). ``omega`` as
+    :func:`zipup_apply` takes it."""
+    L, D = A.shape[1], A.shape[2]
+    lh, du = Wc.shape[2], Wc.shape[5]
+    rows, cols = Dmax * du, D * lh
+    k_sketch = min(min(rows, cols), Dmax + 32)
+    if not (check_rsvd(rsvd) and min(rows, cols) >= 2 * k_sketch):
+        return None
+    if omega is None:
+        omega = sketch_omega(L, cols, k_sketch, A.dtype, A.device)
+    elif callable(omega):
+        omega = omega(L, cols, k_sketch)
+    if tuple(omega.shape) != (L, cols, k_sketch):
+        raise ValueError(f"sketch shape {tuple(omega.shape)} != "
+                         f"{(L, cols, k_sketch)}")
+    return omega.to(device=A.device, dtype=A.dtype)
+
+
 def zipup_apply(mps: MPS, W: torch.Tensor, Dmax: int, *, conj: bool,
                 tol: float, rsvd: bool = True, omega=None):
     """Left-to-right zip-up of W (B, L, l, d, r, u) onto mps, truncated to
@@ -528,18 +552,8 @@ def zipup_apply(mps: MPS, W: torch.Tensor, Dmax: int, *, conj: bool,
     lh, du = Wc.shape[2], Wc.shape[5]
     dtype, device = mps.A.dtype, mps.A.device
     tol = max(torch.finfo(dtype).eps, tol)
-    rows, cols = Dmax * du, D * lh
-    k_sketch = min(min(rows, cols), Dmax + 32)
-    use_rsvd = check_rsvd(rsvd) and min(rows, cols) >= 2 * k_sketch
-    if use_rsvd:
-        if omega is None:
-            omega = sketch_omega(L, cols, k_sketch, dtype, device)
-        elif callable(omega):
-            omega = omega(L, cols, k_sketch)
-        if tuple(omega.shape) != (L, cols, k_sketch):
-            raise ValueError(f"sketch shape {tuple(omega.shape)} != "
-                             f"{(L, cols, k_sketch)}")
-        omega = omega.to(device=device, dtype=dtype)
+    omega = _zipup_sketch(mps.A, Wc, Dmax, rsvd, omega)
+    use_rsvd = omega is not None
 
     T = torch.zeros((B, Dmax, D, lh), dtype=dtype, device=device)
     T[:, 0, 0, 0] = 1.0
@@ -711,27 +725,60 @@ def variational_implicit_plain(A0, phi_A, Wc, *, tol: float,
                       max_sweeps=max_sweeps)
 
 
+def zipup_truncate(mps: MPS, Wc: torch.Tensor, Dmax: int, *, tolS: float,
+                   rsvd: bool = True, omega=None):
+    """The steps of :func:`compress_apply` before the polish, in plain
+    torch: right-canonize ``mps``, zip up the oriented row Wc (B, L, l,
+    d, r, u) at bond 2*Dmax (the sketch as ``rsvd`` and ``omega`` set it,
+    the keep rule at tolS/10), one truncation sweep down to Dmax (tolS)
+    and the slice. Returns (the right-canonical input MPS, the truncated
+    MPS, discarded (B,)); K6 computes the same."""
+    phi, _ = canonize_right(mps)
+    out, disc = zipup_apply(phi, Wc, 2 * Dmax, conj=True, tol=tolS / 10,
+                            rsvd=rsvd, omega=omega)
+    out, disc2 = canonize_right(out, compress=True, cap=Dmax, tol=tolS)
+    return phi, slice_bond(out, Dmax), torch.maximum(disc, disc2)
+
+
+def _zipup_k6(mps, Wc, omega, tolS):
+    """K6's steps with the stage clock's counter: a recording clock
+    counts the row (``zipup_k6``); nothing waits either way."""
+    phi_A, phi_ln, A0, disc = _zipup.zipup_row(mps.A, mps.lognorm, Wc,
+                                               omega, tolS=tolS)
+    rec = config.recording()
+    if rec is not None:
+        rec.count("zipup_k6", 1)
+    return MPS(A=phi_A, lognorm=phi_ln), MPS(A=A0, lognorm=phi_ln), disc
+
+
 def compress_apply(mps: MPS, W: torch.Tensor, Dmax: int, *, conj: bool,
                    tolS: float, tolV: float, max_sweeps: int,
                    rsvd: bool = True, omega=None):
     """Apply one MPO row W (B, L, l, d, r, u) to an MPS and compress to
     Dmax, fat-MPS-free: right-canonize, zip-up at bond 2*Dmax, one
     truncation sweep down to Dmax, then variational polish. Returns
-    (MPS, overlap (B,), discarded (B,), sweeps (B,))."""
+    (MPS, overlap (B,), discarded (B,), sweeps (B,)).
+
+    Float32 CUDA rows at K6's shapes (``kernels.zipup.engages``: the
+    balancing ladder's bond of 8 and legs of 16, with the sketch) run the
+    steps before the polish in one launch of K6; everything else runs
+    :func:`zipup_truncate`.
+    """
     eps = torch.finfo(mps.A.dtype).eps
     tolS = max(tolS, eps)
     tolV = max(tolV, 32 * eps)
-    mps, _ = canonize_right(mps)
-    out, disc = zipup_apply(mps, W, 2 * Dmax, conj=conj, tol=tolS / 10,
-                            rsvd=rsvd, omega=omega)
-    out, disc2 = canonize_right(out, compress=True, cap=Dmax, tol=tolS)
-    disc = torch.maximum(disc, disc2)
-    out = slice_bond(out, Dmax)
+    Wc = _orient_mpo(W, conj)
+    omega = _zipup_sketch(mps.A, Wc, 2 * Dmax, rsvd, omega)
+    if _zipup.engages(mps.A, Wc, omega):
+        phi, out, disc = _zipup_k6(mps, Wc, omega, tolS)
+    else:
+        phi, out, disc = zipup_truncate(mps, Wc, Dmax, tolS=tolS, rsvd=rsvd,
+                                        omega=omega)
     # the polish reconstructs the state norm from scratch, so it starts
     # from the target's lognorm, not the zip-up's
-    out = out._replace(lognorm=mps.lognorm)
+    out = out._replace(lognorm=phi.lognorm)
     out, overlap, sweeps = variational_implicit(
-        out, mps.A, W, conj=conj, tol=tolV, max_sweeps=max_sweeps)
+        out, phi.A, W, conj=conj, tol=tolV, max_sweeps=max_sweeps)
     return out, overlap, disc, sweeps
 
 
