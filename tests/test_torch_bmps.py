@@ -9,7 +9,6 @@ batch of one.
 """
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -19,35 +18,7 @@ from tnax import bmps as jbmps
 from tnax import engine as jengine
 from tnax_torch import bmps, engine, interop
 from test_search_small import make_chimera_like
-
-
-def dense(A, lognorm):
-    """Dense vector of a stacked MPS with boundary bond index 0."""
-    A = np.asarray(A)
-    D = A.shape[3]
-    v = A[0][0]                                   # (d, D)
-    for n in range(1, A.shape[0]):
-        v = np.einsum("xa,adb->xdb", v, A[n]).reshape(-1, D)
-    return v[:, 0] * 2.0 ** float(np.asarray(lognorm))
-
-
-@pytest.fixture(scope="module")
-def one_torch_thread():
-    """Torch on one CPU thread for a module's tests: their operations are
-    small, so more threads only spin against the test workers beside
-    them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def tnax_omega(L, n, k):
-    """The sketch matrices tnax's zip-up draws (bmps.py:600, :649)."""
-    keys = jax.random.split(jax.random.PRNGKey(0), L)
-    return torch.as_tensor(np.stack([
-        np.asarray(jax.random.normal(keys[i], (n, k), jnp.float64))
-        for i in range(L)]))
+from torch_helpers import dense, tnax_omega
 
 
 def _mps_and_row(seed, L=3, D=8, d=16, lh=16, canonize="right"):

@@ -19,9 +19,7 @@ from tnax import engine as jengine
 from tnax.search import ContractionContext as JContext
 from tnax_torch import bmps, engine, interop
 from test_search_small import make_chimera_like
-from test_torch_bmps import dense, one_torch_thread, tnax_omega  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from torch_helpers import dense, tnax_omega
 
 
 @pytest.fixture(autouse=True)

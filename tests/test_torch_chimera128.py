@@ -15,7 +15,7 @@ from tnax import engine as jengine
 from tnax import parallel as jpar
 import tnax_torch as tt
 from tnax_torch import engine
-from test_torch_bmps import tnax_omega
+from torch_helpers import tnax_omega
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 INSTANCE = os.path.join(DATA, "chimera128_synth_s0.txt")

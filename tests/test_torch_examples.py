@@ -19,10 +19,7 @@ from tnax_torch.examples import (common, e01_search_gs, e02_sample,
                                  e05_minimal_rmf,
                                  e06_search_gs_degeneracy_j124,
                                  e07_fleet_sweep)
-from test_torch_bmps import one_torch_thread  # noqa: F401
-from test_torch_precondition_host import _one_blas_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+import torch_helpers  # noqa: F401  (the thread policy)
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

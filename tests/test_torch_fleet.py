@@ -14,8 +14,8 @@ from tnax import parallel as jpar
 import tnax_torch as tt
 from tnax_torch import bmps, engine, kernels, parallel
 from test_search_small import make_chimera_like
-from test_torch_bmps import tnax_omega
-from test_torch_gpu import _candidates, _key1, _marginal_inputs
+from torch_helpers import (candidate_key1, candidate_set, marginal_inputs,
+                           tnax_omega)
 
 NX = NY = 3
 NC = 4
@@ -175,8 +175,8 @@ def test_build_rho_both_batched_matches_per_instance_stacks():
 
 def test_merge_segments_plain_batched_matches_per_instance():
     rng = np.random.default_rng(5)
-    sets = [_candidates(rng, 64, 512, 4, 3) for _ in range(4)]
-    key1 = np.stack([_key1(v, ok) for v, _, _, ok, _ in sets])
+    sets = [candidate_set(rng, 64, 512, 4, 3) for _ in range(4)]
+    key1 = np.stack([candidate_key1(v, ok) for v, _, _, ok, _ in sets])
     args = [torch.as_tensor(key1)] + [
         torch.as_tensor(np.stack(x)) for x in list(zip(*sets))[1:]]
     got = kernels.merge_segments_plain(*args, 1e-12)
@@ -191,7 +191,7 @@ def test_merge_segments_plain_batched_matches_per_instance():
 
 def test_marginal_epilogue_plain_batched_matches_per_instance():
     rng = np.random.default_rng(6)
-    ins = [_marginal_inputs(rng, nvalid=nv) for nv in (13, 16, 9)]
+    ins = [marginal_inputs(rng, nvalid=nv) for nv in (13, 16, 9)]
     lB, drindex, AT, RL, RRsel, lidx, uidx = (
         torch.as_tensor(np.stack(x)) for x in list(zip(*ins))[:7])
     nvalid = torch.tensor([a[-1] for a in ins])

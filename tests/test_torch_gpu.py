@@ -16,62 +16,12 @@ import pytest
 import torch
 
 from tnax_torch import engine, kernels
+from torch_helpers import (badly_scaled, candidate_key1, candidate_set,
+                           extreme_gebal, marginal_inputs)
 
 
 def _t(a):
     return torch.as_tensor(np.asarray(a))
-
-
-def _badly_scaled(rng, n):
-    A = rng.standard_normal((n, n))
-    return A * np.exp2(rng.integers(-20, 20, size=(n, 1)))
-
-
-def _extreme_gebal(rng, n, count=4):
-    """Badly balanced n x n matrices for K1: a similarity scaling
-    2^(k_i - k_j), k in [-25, 25], so that the entries span 2^-50 ..
-    2^50, with row 2 and column 5 zero; nd = n, n, n - 3, n // 2."""
-    As = []
-    for _ in range(count):
-        k = rng.integers(-25, 26, size=n)
-        A = rng.standard_normal((n, n)) * np.exp2(k[:, None] - k[None, :])
-        A[2, :] = 0.0
-        A[:, 5] = 0.0
-        As.append(A)
-    return np.stack(As), np.array([n, n, n - 3, n // 2][:count])
-
-
-def _candidates(rng, M, C, Nx, bits):
-    """A merge candidate set with repeated vind rows, energy ties within
-    min_dEng and exact probability ties; int64 degeneracies."""
-    parents = rng.integers(0, 1 << bits, size=(M // 4, Nx + 1))
-    vind = parents[rng.integers(0, M // 4, size=C)].astype(np.int32)
-    Eng = rng.integers(-40, 40, size=C) / 4.0
-    prob = -rng.integers(0, 30, size=C) / 8.0
-    valid = rng.random(C) < 0.85
-    deg = rng.integers(1, 1 << 24, size=C)
-    return vind, Eng, prob, valid, deg
-
-
-def _key1(vind, valid):
-    """An injective int32 key of (vind row, validity): the row's rank."""
-    _, rank = np.unique(vind, axis=0, return_inverse=True)
-    return ((rank.reshape(-1).astype(np.int32) << 1)
-            | (~valid).astype(np.int32))
-
-
-def _marginal_inputs(rng, M=48, Np=16, lh=4, lv=4, D=6, nvalid=13):
-    lB = -np.abs(rng.standard_normal((Np, lh, lv))) * 30
-    lB[nvalid:] = -np.inf
-    lB[:, 3, :] = -np.inf          # a leg value with no allowed state
-    drindex = rng.permutation(lh * lv)[:Np].astype(np.int32)
-    AT = rng.standard_normal((D, lv, D))
-    RL = rng.standard_normal((M, D))
-    RRsel = np.abs(rng.standard_normal((M, D, lh)))
-    RRsel[::5] -= 0.3              # negative marginals to clamp
-    lidx = rng.integers(0, lh, size=M).astype(np.int32)
-    uidx = rng.integers(0, lv, size=M).astype(np.int32)
-    return lB, drindex, AT, RL, RRsel, lidx, uidx, nvalid
 
 
 def _rtol(dtype):
@@ -89,7 +39,7 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_gebal_kernel_matches_plain(cuda, dtype):
     rng = np.random.default_rng(0)
-    A = _t(np.stack([_badly_scaled(rng, 16) for _ in range(15)]))
+    A = _t(np.stack([badly_scaled(rng, 16) for _ in range(15)]))
     A = A.to(cuda, dtype)
     nd = torch.tensor([16] * 14 + [9], device=cuda)
     before = kernels.gebal_scale.launches
@@ -109,9 +59,9 @@ def test_gebal_kernel_any_size_matches_plain(cuda, dtype, n, case):
     for bit."""
     rng = np.random.default_rng(n)
     if case == "extreme":
-        As, nds = _extreme_gebal(rng, n)
+        As, nds = extreme_gebal(rng, n)
     else:
-        As = np.stack([_badly_scaled(rng, n) for _ in range(15)])
+        As = np.stack([badly_scaled(rng, n) for _ in range(15)])
         nds = np.array([n] * 14 + [n - 4])
     A = _t(As).to(cuda, dtype)
     want = kernels.gebal_scale_plain(A, _t(nds).to(cuda), 1e30)
@@ -128,8 +78,8 @@ def test_gebal_kernel_any_size_matches_plain(cuda, dtype, n, case):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_merge_kernel_matches_plain(cuda, dtype):
     rng = np.random.default_rng(0)
-    vind, Eng, prob, valid, deg = _candidates(rng, 1024, 8192, 16, 4)
-    args = (_t(_key1(vind, valid)).to(cuda), _t(Eng).to(cuda),
+    vind, Eng, prob, valid, deg = candidate_set(rng, 1024, 8192, 16, 4)
+    args = (_t(candidate_key1(vind, valid)).to(cuda), _t(Eng).to(cuda),
             _t(prob).to(cuda, dtype), _t(valid).to(cuda), _t(deg).to(cuda))
     got = kernels.merge_segments(*args, 1e-12)
     want = kernels.merge_segments_plain(*args, 1e-12)
@@ -221,8 +171,8 @@ def test_merge_kernel_batched_matches_plain(cuda, dtype):
     """The fleet's merge: 8 instances of C = 2048 in one launch, each row
     equal to its own plain run."""
     rng = np.random.default_rng(1)
-    sets = [_candidates(rng, 1024, 2048, 8, 4) for _ in range(8)]
-    key1 = np.stack([_key1(v, ok) for v, _, _, ok, _ in sets])
+    sets = [candidate_set(rng, 1024, 2048, 8, 4) for _ in range(8)]
+    key1 = np.stack([candidate_key1(v, ok) for v, _, _, ok, _ in sets])
     args = [_t(key1).to(cuda)] + [_t(np.stack(x)).to(cuda)
                                   for x in list(zip(*sets))[1:]]
     args[2] = args[2].to(dtype)
@@ -241,8 +191,8 @@ def _batched_marginal_args(rng, cuda, dtype, nvalids, M=1024):
     """K3's inputs at full width for one instance per entry of
     ``nvalids``: lBT with the states last and int64 indices, as the search
     holds them, and the cutoff window."""
-    ins = [_marginal_inputs(rng, M=M, Np=256, lh=16, lv=16, D=32,
-                            nvalid=nv) for nv in nvalids]
+    ins = [marginal_inputs(rng, M=M, Np=256, lh=16, lv=16, D=32,
+                           nvalid=nv) for nv in nvalids]
     B = len(nvalids)
     lB, drindex, AT, RL, RRsel, lidx, uidx = (
         _t(np.stack(x)).to(cuda) for x in list(zip(*ins))[:7])
@@ -285,8 +235,8 @@ def _site_args(rng, cuda, dtype, nvalids, M, D):
     entry of ``nvalids``, as the sampler holds them: T2 from the two GEMMs,
     the table with the states last, int64 drindex/nvalid, int32 dmap,
     rmap, vind and states; uniforms in the dtype, mq = +inf."""
-    ins = [_marginal_inputs(rng, M=M, Np=256, lh=16, lv=16, D=D,
-                            nvalid=nv) for nv in nvalids]
+    ins = [marginal_inputs(rng, M=M, Np=256, lh=16, lv=16, D=D,
+                           nvalid=nv) for nv in nvalids]
     B = len(nvalids)
     lB, drindex, AT, RL, RRsel, lidx, uidx = (
         _t(np.stack(x)).to(cuda) for x in list(zip(*ins))[:7])

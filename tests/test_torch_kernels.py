@@ -15,8 +15,8 @@ from tnax import engine as jengine
 from tnax import parallel as jpar
 from tnax import precondition as jpre
 from tnax_torch import engine, interop, kernels, parallel
-from test_torch_gpu import (_badly_scaled, _candidates, _key1,
-                            _marginal_inputs)
+from torch_helpers import (badly_scaled, candidate_key1, candidate_set,
+                           marginal_inputs)
 
 
 def _t(a):
@@ -30,7 +30,7 @@ def _t(a):
 @pytest.mark.parametrize("n", [2, 3, 5, 8, 12, 16])
 def test_gebal_plain_bit_equal_to_scipy_and_tnax(n):
     rng = np.random.default_rng(n)
-    As = np.stack([_badly_scaled(rng, n) for _ in range(5)])
+    As = np.stack([badly_scaled(rng, n) for _ in range(5)])
     got = kernels.gebal_scale_plain(_t(As), _t(np.full(5, n)), 1e30).numpy()
     for b in range(5):
         _, (want, _) = scipy.linalg.matrix_balance(
@@ -63,9 +63,9 @@ def test_gebal_plain_padding_and_clip():
 def test_merge_candidates_plain_matches_tnax(seed, with_key1):
     rng = np.random.default_rng(seed)
     M, C, Nx, bits = 32, 256, 3, 2
-    vind, Eng, prob, valid, deg = _candidates(rng, M, C, Nx, bits)
+    vind, Eng, prob, valid, deg = candidate_set(rng, M, C, Nx, bits)
     limbs = jpar.deg_encode(deg)
-    key1 = _key1(vind, valid) if with_key1 else None
+    key1 = candidate_key1(vind, valid) if with_key1 else None
     ref = jpar.merge_candidates(
         jnp.asarray(vind), jnp.asarray(Eng), jnp.asarray(prob),
         jnp.asarray(valid), 1e-12, bits, M, deg=jnp.asarray(limbs),
@@ -105,7 +105,7 @@ def test_pack_keys_and_lexsort_match_tnax():
 # ---------------------------------------------------------------------------
 
 def test_marginal_step_plain_matches_tnax():
-    args = _marginal_inputs(np.random.default_rng(0))
+    args = marginal_inputs(np.random.default_rng(0))
     Pn_j, mPn_j = jengine.marginal_step(*(jnp.asarray(a) for a in args))
     Pn, mPn = (x[0] for x in engine.marginal_step(
         *(_t(a)[None] for a in args[:-1]), torch.tensor([args[-1]])))
@@ -118,7 +118,7 @@ def test_marginal_step_plain_matches_tnax():
 
 def test_marginal_epilogue_plain_matches_tnax_probf():
     rng = np.random.default_rng(1)
-    args = _marginal_inputs(rng)
+    args = marginal_inputs(rng)
     M = args[3].shape[0]
     prob = -np.abs(rng.standard_normal(M)) * 40
     valid = rng.random(M) < 0.7

@@ -12,7 +12,7 @@ from tnax import engine as jengine
 from tnax import precondition as jpre
 from tnax_torch import interop, precondition
 from test_search_small import make_chimera_like
-from test_torch_bmps import tnax_omega
+from torch_helpers import tnax_omega
 
 
 @pytest.mark.parametrize("betas", [[1.0], [0.5, 1.0]])

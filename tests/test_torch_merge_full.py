@@ -16,8 +16,8 @@ from tnax import parallel as jpar
 import tnax_torch as tt
 from tnax_torch import engine, interop, kernels, parallel
 from test_search_small import make_chimera_like
-from test_torch_bmps import tnax_omega
-from test_torch_gpu import _candidates, _key1, _marginal_inputs
+from torch_helpers import (candidate_key1, candidate_set, marginal_inputs,
+                           tnax_omega)
 
 NEG = jpar.NEG
 
@@ -61,8 +61,8 @@ def test_merge_candidates_key1_above_8192_matches_tnax():
     (below 2 * C = 2**15), so the kernel would sort 15 bits."""
     rng = np.random.default_rng(4)
     M, C, Nx, bits = 1024, 16384, 4, 4
-    sets = [_candidates(rng, M, C, Nx, bits) for _ in range(2)]
-    key1 = np.stack([_key1(v, ok) for v, _, _, ok, _ in sets])
+    sets = [candidate_set(rng, M, C, Nx, bits) for _ in range(2)]
+    key1 = np.stack([candidate_key1(v, ok) for v, _, _, ok, _ in sets])
     assert 0 <= key1.min() and key1.max() < 2 ** 15
     vind, Eng, prob, valid, deg = (_t(np.stack(x)) for x in zip(*sets))
     got = parallel.merge_candidates(vind, Eng, prob, valid, 1e-12, bits, M,
@@ -85,7 +85,7 @@ def test_merge_candidates_key1_above_8192_matches_tnax():
 
 
 def _epilogue_args(rng, nvalids, M=48):
-    ins = [_marginal_inputs(rng, M=M, nvalid=nv) for nv in nvalids]
+    ins = [marginal_inputs(rng, M=M, nvalid=nv) for nv in nvalids]
     lB, drindex, AT, RL, RRsel, lidx, uidx = (
         _t(np.stack(x)) for x in list(zip(*ins))[:7])
     B = len(nvalids)

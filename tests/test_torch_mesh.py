@@ -8,50 +8,21 @@ import this module by name, so it imports tnax only inside the
 parent's functions."""
 
 import os
-import time
 
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 import tnax_torch as tt
 from tnax_torch import interop, parallel
 from tnax_torch.kernels import marginal
+from torch_helpers import spawn
 
 WORLD = 8
 M = 64
 ROW = dict(Nx=4, min_dEng=1e-12, log2_cutoff=-40.0)
 SEARCH = dict(M=M, relative_P_cutoff=1e-12, Dmax=8)
-
-
-@pytest.fixture(scope="module")
-def one_torch_thread():
-    """Torch on one CPU thread in this process for a module's tests (as
-    test_torch_bmps's fixture, which the ranks cannot import: that module
-    imports jax): the parent's work is small, and more threads only spin
-    against the ranks and the test workers beside them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
-
-
-def spawn(fn, world, args, timeout=240):
-    """Run fn(rank, *args) in ``world`` spawned processes; raise if any
-    rank raises or the ranks outlast ``timeout`` seconds."""
-    ctx = mp.start_processes(fn, args=args, nprocs=world, join=False,
-                             start_method="spawn")
-    deadline = time.time() + timeout
-    while not ctx.join(timeout=1.0):
-        if time.time() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            raise TimeoutError(f"mesh ranks still running after {timeout} s")
 
 
 def _solvers(Js, Nx, Ny, Nc, beta):
@@ -69,7 +40,6 @@ def _local(x, mesh, *axes):
 
 def _ranks(rank, store, out, inputs):
     """One rank: every mesh check, its results saved to out/r<rank>.pt."""
-    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             world_size=WORLD, rank=rank)
     inp = torch.load(inputs, weights_only=False)

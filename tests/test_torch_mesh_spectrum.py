@@ -16,9 +16,7 @@ import torch.distributed as dist
 
 import tnax_torch as tt
 from tnax_torch import parallel, spectrum
-from test_torch_mesh import one_torch_thread, spawn  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from torch_helpers import degenerate_J, spawn
 
 WORLD = 4
 SPEC = dict(M=64, relative_P_cutoff=1e-12, Dmax=8, max_dEng=3.0)
@@ -56,7 +54,6 @@ def _records(ctx, M, C, mesh=None):
 
 
 def _ranks(rank, store, out, J):
-    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             world_size=WORLD, rank=rank)
     mesh = parallel.make_mesh(1, 4)
@@ -72,17 +69,10 @@ def _ranks(rank, store, out, J):
     dist.destroy_process_group()
 
 
-def _J():
-    import tnax
-    from test_search_small import make_chimera_like
-    J = make_chimera_like(np.random.default_rng(4), 3, 3, 2, field=False)
-    return [j for j in tnax.round_Jij(J, 1.0) if j[2] != 0]
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh_spectrum")
-    J = _J()
+    J = degenerate_J()
     spawn(_ranks, WORLD, (str(tmp / "store"), str(tmp), J))
     return J, [torch.load(tmp / f"r{r}.pt", weights_only=False)
                for r in range(WORLD)]

@@ -14,9 +14,7 @@ import torch
 from tnax import bmps as jbmps
 from tnax_torch import bmps, interop
 from test_bmps import dense_state, random_mps
-from test_torch_bmps import one_torch_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+import torch_helpers  # noqa: F401  (the thread policy)
 
 CPU = dict(device="cpu")
 

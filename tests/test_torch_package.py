@@ -15,6 +15,7 @@ import torch
 
 import tnax_torch
 from tnax_torch import bmps, kernels, native
+import torch_helpers  # noqa: F401  (the thread policy)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMPORT = re.compile(r"^\s*(import|from)\s+(jax|tnax)\b")

@@ -12,10 +12,7 @@ import torch
 import tnax_torch as tt
 from tnax_torch import bmps, config, engine, kernels
 from tnax_torch.kernels import polish
-from test_torch_bmps import one_torch_thread  # noqa: F401
-from test_torch_stage_spans import _J
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from torch_helpers import droplet_J
 
 
 def _solver(J, n, dtype=torch.float64):
@@ -27,7 +24,7 @@ def _rows(n, dtype, batch=1, forward=False, seeds=None):
     """The polish inputs (A0, phi_A, Wc, tol, max_sweeps) of every row of
     the D=8 zip-up stack of chimera C(n) instances (``batch`` copies, or
     one instance per seed), captured on the CPU."""
-    Js = [_J(n, s) for s in seeds] if seeds else [_J(n)] * batch
+    Js = [droplet_J(n, s) for s in seeds] if seeds else [droplet_J(n)] * batch
     Wt = torch.cat([_solver(J, n, dtype)._context().Wt for J in Js])
     rows, orig = [], bmps.variational_implicit
 
@@ -51,7 +48,7 @@ def test_cpu_ladder_takes_the_plain_path(n, dtype):
     """The device ladder and the boundary on the CPU, at K5's shapes in
     float32 as well: no K5 launch, no ``#polish_k5`` counter, and the
     passes counted by the plain loop."""
-    ins = _solver(_J(n), n, dtype)
+    ins = _solver(droplet_J(n), n, dtype)
     before = kernels.polish_row.launches
     st = {}
     ins.precondition(path="device", stage_times=st)
@@ -147,7 +144,7 @@ def test_recording_clock_counts_k5_rows(k5_on_the_cpu, n):
     ``#passes`` adds each row's most sweeps (one read after the launch),
     ``#variational_s`` the seconds from the read before the launch to
     that read, and ``#wait_s`` the two reads."""
-    ins = _solver(_J(n), n)
+    ins = _solver(droplet_J(n), n)
     st = {}
     ins.precondition(path="device", stage_times=st)
     rows = 2 * n

@@ -16,24 +16,7 @@ from tnax import engine as jengine
 from tnax import precondition as jpre
 from tnax_torch import precondition
 from test_search_small import make_chimera_like
-from test_torch_bmps import one_torch_thread, tnax_omega  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_blas_thread():
-    """NumPy's BLAS on one thread for this module: the host sweeps make
-    thousands of tiny LAPACK calls, and BLAS threads that wait for each
-    other slow this module and the test workers beside it many times
-    over when the suite runs in parallel."""
-    try:
-        from threadpoolctl import threadpool_limits
-    except ImportError:     # without threadpoolctl the limit is not set
-        yield
-        return
-    with threadpool_limits(limits=1, user_api="blas"):
-        yield
+from torch_helpers import tnax_omega
 
 KEYS = ("Xl", "Xr", "Xu", "Xd")
 # 3x4 cells of 4 spins: lh = lv = 16, so the D=8 boundaries truncate and

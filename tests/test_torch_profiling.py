@@ -11,15 +11,12 @@ import torch
 import tnax_torch as tt
 from tnax_torch import profiling
 
-from test_torch_mesh import one_torch_thread  # noqa: F401
-from test_torch_mesh_spectrum import _J as _degenerate_J
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from torch_helpers import degenerate_J
 
 
 def _solver():
     return tt.Solver(mode="Ising", Nx=3, Ny=3, Nc=2, beta=1.5,
-                     J=_degenerate_J(), device="cpu")
+                     J=degenerate_J(), device="cpu")
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

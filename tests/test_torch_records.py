@@ -21,9 +21,7 @@ from tnax import spectrum as jspec
 import tnax_torch as tt
 from tnax_torch import spectrum
 from test_search_small import make_chimera_like
-from test_torch_bmps import one_torch_thread  # noqa: F401 (fixture)
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+import torch_helpers  # noqa: F401  (the thread policy)
 
 M, D, CUTOFF = 64, 32, 1e-16
 INT_FIELDS = ("src", "indc", "slot", "rep", "out_valid", "n_valid", "count")

@@ -18,8 +18,7 @@ from tnax import parallel as jpar
 import tnax_torch as tt
 from tnax_torch import engine, kernels, parallel
 from test_search_small import brute_force_min, make_chimera_like
-from test_torch_bmps import tnax_omega
-from test_torch_gpu import _marginal_inputs
+from torch_helpers import marginal_inputs, tnax_omega, tnax_uniforms
 
 NX = NY = 3
 NC = 4
@@ -40,17 +39,6 @@ def _solver(J, **kw):
 
 def _tnax_solver(J):
     return tnax.Solver(mode="Ising", Nx=NX, Ny=NY, Nc=NC, beta=BETA, J=J)
-
-
-def tnax_uniforms(key, n_sites, M):
-    """The uniforms tnax's sampling pass draws from ``key``: per site in
-    row-major order ``key, sub = split(key)``, then ``uniform(sub, (M,))``
-    (parallel.py:1296-1297). Returns (n_sites, M) float64."""
-    out = []
-    for _ in range(n_sites):
-        key, sub = jax.random.split(key)
-        out.append(np.asarray(jax.random.uniform(sub, (M,), jnp.float64)))
-    return np.stack(out)
 
 
 def _assert_same_samples(got, want, J, ins):
@@ -143,8 +131,8 @@ def test_sample_rows_matches_tnax():
     port's row is a batch of one instance."""
     rng = np.random.default_rng(31)
     Nx, Np, lh, lv, D, Mw = 3, 16, 4, 4, 6, 40
-    sites = [_marginal_inputs(rng, M=Mw, Np=Np, lh=lh, lv=lv, D=D,
-                              nvalid=nv) for nv in (13, 16, 9)]
+    sites = [marginal_inputs(rng, M=Mw, Np=Np, lh=lh, lv=lv, D=D,
+                             nvalid=nv) for nv in (13, 16, 9)]
     lB = np.stack([s[0] for s in sites])
     drindex = np.stack([s[1] for s in sites])
     AT = np.stack([s[2] for s in sites])
@@ -203,7 +191,7 @@ def test_sample_draw_plain_matches_tnax(case):
     rng = np.random.default_rng(dict(valid=40, full=41, zero_rows=42)[case])
     nvs = dict(valid=(13, 9, 1), full=(16, 16, 16),
                zero_rows=(13, 16, 7))[case]
-    ins = [_marginal_inputs(rng, M=48, nvalid=nv) for nv in nvs]
+    ins = [marginal_inputs(rng, M=48, nvalid=nv) for nv in nvs]
     if case == "zero_rows":
         for a in ins:
             a[4][::3] = 0.0        # RRsel rows of zeros: T2 rows of zeros

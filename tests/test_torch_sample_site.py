@@ -21,7 +21,7 @@ from tnax import parallel as jpar
 from tnax import precondition as jpre
 from tnax_torch import engine, kernels, parallel
 from tnax_torch.kernels import sample
-from test_torch_gpu import _extreme_gebal, _marginal_inputs
+from torch_helpers import extreme_gebal, marginal_inputs
 
 NP, LH, LV = 16, 4, 4
 
@@ -34,7 +34,7 @@ def _site_args(rng, B, M, D, nvalids, nx=1, W=4, L=6):
     """sample_site's inputs for B instances: T2 from the two GEMMs, the
     table with the states last, int64 drindex/nvalid, int32 dmap, rmap,
     vind and states, as the sampler holds them."""
-    ins = [_marginal_inputs(rng, M=M, Np=NP, lh=LH, lv=LV, D=D, nvalid=nv)
+    ins = [marginal_inputs(rng, M=M, Np=NP, lh=LH, lv=LV, D=D, nvalid=nv)
            for nv in nvalids]
     lB, drindex, AT, RL, RRsel, lidx, uidx = (
         _t(np.stack(x)) for x in list(zip(*ins))[:7])
@@ -114,8 +114,8 @@ def test_sample_rows_fleet_matches_tnax(D):
     nvalids = ((13, 16), (5, 9))          # (instance, site)
     rows = []
     for ny in range(2):
-        sites = [[_marginal_inputs(rng, M=Mw, Np=NP, lh=LH, lv=LV, D=D,
-                                   nvalid=nv) for nv in nvs]
+        sites = [[marginal_inputs(rng, M=Mw, Np=NP, lh=LH, lv=LV, D=D,
+                                  nvalid=nv) for nv in nvs]
                  for nvs in nvalids]
         rows.append(dict(
             lB=np.stack([[s[0] for s in inst] for inst in sites]),
@@ -216,7 +216,7 @@ def test_gebal_plain_extreme_matches_scipy_and_tnax(n):
     """K1's plain version on badly balanced n x n matrices (a similarity
     scaling whose entries span 2^-50 .. 2^50, a zero row and a zero
     column, nd < n for two): bit for bit scipy's and tnax's scales."""
-    As, nds = _extreme_gebal(np.random.default_rng(n), n)
+    As, nds = extreme_gebal(np.random.default_rng(n), n)
     got = kernels.gebal_scale_plain(_t(As), _t(nds), 1e30).numpy()
     for b, nd in enumerate(nds):
         _, (want, _) = scipy.linalg.matrix_balance(

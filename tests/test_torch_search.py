@@ -15,7 +15,7 @@ import tnax_torch as tt
 from tnax_torch import engine, interop, parallel
 from tnax_torch.kernels import marginal
 from test_search_small import make_chimera_like
-from test_torch_bmps import tnax_omega
+from torch_helpers import tnax_omega
 
 M = 64
 

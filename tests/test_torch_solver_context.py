@@ -15,9 +15,7 @@ from tnax import parallel as jpar
 from tnax import search as jsearch
 from tnax_torch import interop
 from test_search_small import make_chimera_like
-from test_torch_bmps import dense, one_torch_thread, tnax_omega
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from torch_helpers import dense, tnax_omega
 
 
 def _pair(Nx=3, Ny=3, Nc=4, beta=2, seed=3):

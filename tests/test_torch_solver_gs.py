@@ -21,10 +21,7 @@ from tnax import search as jsearch
 import tnax_torch as tt
 from tnax_torch import engine, kernels, parallel, search
 from test_search_small import make_chimera_like
-from test_torch_bmps import one_torch_thread, tnax_omega  # noqa: F401
-from test_torch_gpu import _marginal_inputs
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from torch_helpers import marginal_inputs, tnax_omega
 
 KW = dict(M=16, relative_P_cutoff=1e-6, Dmax=8)
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -106,7 +103,7 @@ def _zero_marginal_site(seed, dtype):
     """A site whose states 2 and 7 have no Boltzmann weight: their
     marginals are exactly zero for every branch."""
     rng = np.random.default_rng(seed)
-    lB, drindex, AT, RL, RRsel, lidx, uidx, nvalid = _marginal_inputs(
+    lB, drindex, AT, RL, RRsel, lidx, uidx, nvalid = marginal_inputs(
         rng, M=48)
     lB[[2, 7]] = -np.inf
     lidx = np.where(lidx == 3, 0, lidx)   # no branch on the empty leg
@@ -203,7 +200,7 @@ def test_fast_path_expand_candidates_matches_tnax():
     16-state site, 40 of them valid, with a cutoff that keeps some hundred
     candidates, all within 8 of zero (where float32's spacing is 5e-7)."""
     rng = np.random.default_rng(8)
-    lB, drindex, AT, RL, RRsel, lidx, uidx, nvalid = _marginal_inputs(
+    lB, drindex, AT, RL, RRsel, lidx, uidx, nvalid = marginal_inputs(
         rng, M=48)
     K, M, Np, cutoff = 40, 48, lB.shape[0], 1e-2
     prob = -np.abs(rng.standard_normal(K)) * 0.5

@@ -14,9 +14,7 @@ import torch
 import tnax
 import tnax_torch as tt
 from test_search_small import make_chimera_like
-from test_torch_bmps import one_torch_thread, tnax_omega  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from torch_helpers import tnax_omega
 
 SPEC = dict(M=64, relative_P_cutoff=1e-8, Dmax=8, max_dEng=6.0)
 

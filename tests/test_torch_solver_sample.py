@@ -14,10 +14,7 @@ from tnax import parallel as jpar
 import tnax_torch as tt
 from tnax_torch import parallel
 from test_search_small import make_chimera_like
-from test_torch_bmps import one_torch_thread, tnax_omega  # noqa: F401
-from test_torch_sample import tnax_uniforms
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from torch_helpers import tnax_omega, tnax_uniforms
 
 NX = NY = 3
 NC = 4

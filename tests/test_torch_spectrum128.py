@@ -14,16 +14,13 @@ which of the two a package meets first): the lists are compared as
 import os
 
 import numpy as np
-import pytest
 import scipy.sparse
 
 import tnax
 import tnax_torch as tt
 from tnax import spectrum as jspec
 from tnax_torch import spectrum
-from test_torch_bmps import one_torch_thread, tnax_omega
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from torch_helpers import tnax_omega
 
 PATH = os.path.join(os.path.dirname(__file__), "data",
                     "chimera128_synth_s0.txt")

@@ -14,9 +14,7 @@ import tnax_torch as tt
 from tnax import spectrum as jspec
 from tnax_torch import interop, spectrum
 from test_search_small import make_chimera_like
-from test_torch_bmps import one_torch_thread, tnax_omega
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from torch_helpers import tnax_omega
 
 KW = dict(M=64, relative_P_cutoff=1e-10, Dmax=8, max_dEng=1.5)
 

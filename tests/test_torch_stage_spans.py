@@ -4,43 +4,16 @@ the boundary builds' counters on chimera-32 and chimera-128 droplet-like
 instances in float64, nothing recorded or synchronized without a dict,
 and answers bit-identical with and without one."""
 
-import os
-
 import numpy as np
 import pytest
 import torch
 
 import tnax_torch as tt
 from tnax_torch import config, engine, parallel
-from test_torch_bmps import one_torch_thread  # noqa: F401
+from torch_helpers import droplet_J
 
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
-
-DATA = os.path.join(os.path.dirname(__file__), "data")
 GS = dict(M=32, relative_P_cutoff=1e-8, Dmax=8)
 LEAVES = ("ladder/peps", "ladder/build", "ladder/balance")
-
-
-def _J(n=2, seed=5):
-    """A chimera C(n) droplet-class instance (couplings k/75, random
-    signs, no fields): chimera-128 from the committed file, else drawn
-    from ``seed``."""
-    if n == 4:
-        rows = tt.load_Jij(os.path.join(DATA, "chimera128_synth_s0.txt"))
-    else:
-        rng, rows = np.random.default_rng(seed), []
-        for ny in range(n):
-            for nx in range(n):
-                b = 8 * (n * ny + nx) + 1          # 1-based, as in a file
-                pairs = [(b + a, b + c) for a in range(4)
-                         for c in range(4, 8)]
-                if ny + 1 < n:
-                    pairs += [(b + k, b + 8 * n + k) for k in range(4)]
-                if nx + 1 < n:
-                    pairs += [(b + k, b + 8 + k) for k in range(4, 8)]
-                rows += [[i, j, rng.choice([-1, 1]) * rng.integers(1, 76)
-                          / 75] for i, j in pairs]
-    return tt.round_Jij(tt.Jij_f2p(rows), 1 / 75)
 
 
 def _solver(J, n=2):
@@ -86,7 +59,7 @@ class Writes(dict):
 @pytest.mark.parametrize("n", [2, 4])
 def test_solver_device_ladder_writes_leaves_and_counters(n):
     st = Writes()
-    _device_unit(_J(n), st, n)
+    _device_unit(droplet_J(n), st, n)
     rungs = 2
     for leaf in LEAVES:
         assert st.writes.count(leaf) == rungs
@@ -107,7 +80,7 @@ def test_solver_device_ladder_writes_leaves_and_counters(n):
 
 
 def test_fleet_ladder_writes_leaves_and_counters():
-    Js = [_J(2, s) for s in (1, 2, 3)]
+    Js = [droplet_J(2, s) for s in (1, 2, 3)]
     st = Writes()
     parallel.multi_flagship_search_gs([_solver(J) for J in Js],
                                       stage_times=st, **GS)
@@ -123,7 +96,7 @@ def test_fleet_ladder_writes_leaves_and_counters():
 
 def test_host_ladder_counts_its_builds():
     st = {}
-    ins = _solver(_J())
+    ins = _solver(droplet_J())
     ins.precondition(path="host", directions=("ud", "lr"), stage_times=st)
     for stage in ("ud builds", "lr builds"):
         assert st[f"{stage}#rows"] == 2 * 2       # two rungs of Ny rows
@@ -135,7 +108,7 @@ def test_host_ladder_counts_its_builds():
 
 def test_host_search_counts_the_boundary():
     st = {}
-    ins = _solver(_J())
+    ins = _solver(droplet_J())
     ins.search_ground_state(path="host", stage_times=st, **GS)
     assert st["boundary#rows"] == 2
     assert st["boundary#passes"] >= 2
@@ -149,9 +122,9 @@ def _answers(ins):
 
 
 def test_answers_are_bit_identical_with_and_without_a_dict():
-    J = _J(2, 9)
+    J = droplet_J(2, 9)
     assert _answers(_device_unit(J, {})) == _answers(_device_unit(J, None))
-    Js = [_J(2, s) for s in (4, 5)]
+    Js = [droplet_J(2, s) for s in (4, 5)]
     got = [parallel.multi_flagship_search_gs([_solver(J) for J in Js],
                                              stage_times=st, **GS)
            for st in ({}, None)]
@@ -185,20 +158,20 @@ def test_nothing_is_recorded_or_synchronized_without_a_dict(monkeypatch,
         monkeypatch.setattr(config.StageClock, name, _refuse)
     monkeypatch.setattr(torch.cuda, "synchronize", _refuse)
     monkeypatch.setattr(torch.cuda, "Event", _refuse)
-    _device_unit(_J(), None)
-    ins = _solver(_J())
+    _device_unit(droplet_J(), None)
+    ins = _solver(droplet_J())
     ins.precondition(path="host", directions=("ud", "lr"))
     ins.search_ground_state(path="host", **GS)
-    parallel.multi_flagship_search_gs([_solver(_J())], **GS)
+    parallel.multi_flagship_search_gs([_solver(droplet_J())], **GS)
     assert len(seen) >= 6 and set(seen) == {None}
 
 
 def test_a_traced_call_leaves_recording_off(monkeypatch, seen):
     first = {}
-    _device_unit(_J(), first)
+    _device_unit(droplet_J(), first)
     assert len(seen) == 3 and None not in seen
     before = dict(first)
-    _device_unit(_J(), None)
+    _device_unit(droplet_J(), None)
     assert len(seen) == 6 and seen[3:] == [None] * 3
     assert first == before
 
@@ -207,7 +180,7 @@ def test_a_traced_call_leaves_recording_off(monkeypatch, seen):
 
     monkeypatch.setattr(engine, "build_rho_both", fail)
     with pytest.raises(RuntimeError):
-        _solver(_J()).precondition(path="device", stage_times={})
+        _solver(droplet_J()).precondition(path="device", stage_times={})
     assert config.recording() is None
 
 

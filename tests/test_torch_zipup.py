@@ -11,10 +11,7 @@ import torch
 import tnax_torch as tt
 from tnax_torch import bmps, config, engine, kernels
 from tnax_torch.kernels import zipup
-from test_torch_bmps import one_torch_thread  # noqa: F401
-from test_torch_stage_spans import _J
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from torch_helpers import droplet_J
 
 
 def _solver(J, n, dtype=torch.float64):
@@ -26,7 +23,7 @@ def _rows(n, dtype, batch=1, forward=False):
     """compress_apply's inputs (mps, W, conj, tolS, tolV, max_sweeps) of
     every row of the D=8 zip-up stack of the chimera C(n) instance
     (``batch`` copies), captured on the CPU."""
-    Wt = torch.cat([_solver(_J(n), n, dtype)._context().Wt] * batch)
+    Wt = torch.cat([_solver(droplet_J(n), n, dtype)._context().Wt] * batch)
     rows, orig = [], bmps.compress_apply
 
     def capture(mps, W, Dmax, *, conj, tolS, tolV, max_sweeps, rsvd=True,
@@ -113,12 +110,12 @@ def test_recording_clock_counts_k6_rows(k6_on_the_cpu, n):
     """A recording clock over K6 rows: ``#zipup_k6`` counts the rows, as
     ``#rows`` does, and the ladder's result is the plain one."""
     st = {}
-    ins = _solver(_J(n), n)
+    ins = _solver(droplet_J(n), n)
     ins.precondition(path="device", stage_times=st)
     rows = 2 * n
     assert len(k6_on_the_cpu) == rows
     assert st["ladder/build#rows"] == st["ladder/build#zipup_k6"] == rows
-    plain = _solver(_J(n), n)
+    plain = _solver(droplet_J(n), n)
     plain.precondition(path="device")
     for k, v in ins._gauges.items():
         assert torch.equal(v, plain._gauges[k])
