@@ -682,6 +682,12 @@ def zipup_ops(L):
                 + qr(128, 8))
 
 
+def k7_calls(stages):
+    """K7's calls as the stage clock counted them: the ``#svd_k7``
+    counters of every key of ``stages``."""
+    return sum(v for k, v in stages.items() if k.endswith("#svd_k7"))
+
+
 def zipup_checks(tt, torch, floor):
     """Phase 2, K6: the ladder's zip-up and truncation sweep in one
     launch against the plain steps on the card, float32, on every row of
@@ -743,6 +749,120 @@ def zipup_checks(tt, torch, floor):
               f"{r['bound_ms']:.6f} ms ({r['bound_by']})  launch floor "
               f"{floor:.4f} ms  max_abs_err {r['max_abs_err']:.3g}",
               flush=True)
+    return out
+
+
+def svd_ops(p, q, vectors, whole, sweeps):
+    """Floating-point operations of K7 on one matrix (p = min(m, n), q =
+    max(m, n)) whose Jacobi ran ``sweeps`` sweeps, two per FMA: the QR's
+    2 q p^2 - 2 p^3 / 3; each sweep's p (p - 1) / 2 pairs, three sums and
+    a rotation over p rows (12 p), and the rotation of J's rows (6 p)
+    where the whole path accumulates it; then V, Q1 J (4 q p^2) on the
+    whole path or the product X^T U (2 p^2 q) on the streamed one."""
+    qr = 2 * q * p * p - 2 * p ** 3 // 3
+    pair = 12 * p + (6 * p if vectors and whole else 0)
+    out = (4 * q * p * p if whole else 2 * p * p * q) if vectors else 0
+    return qr + sweeps * p * (p - 1) // 2 * pair + out
+
+
+# K7's cases: (label, shape, whole path, svd or svdvals), the boundary's
+# SVDs at Dmax 48 (chimera-2048) and 32 (chimera-512)
+SVD_CASES = (("core48", (128, 768), False, True),
+             ("trunc48", (96, 96), True, True),
+             ("polish48", (48, 48), True, False),
+             ("core32", (96, 512), False, True),
+             ("trunc32", (64, 64), True, True),
+             ("polish32", (32, 32), True, False))
+
+
+def boundary_matrices(tt, torch, path, side, Dmax):
+    """Every matrix a float32 boundary build at Dmax hands to K7, after
+    the Solver's ladder, by shape."""
+    from tnax_torch import bmps
+    J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(path)), 1 / 75)
+    ins = tt.Solver(mode="Ising", Nx=side, Ny=side, Nc=8, J=J, beta=3,
+                    device="cuda", dtype=torch.float32)
+    ins.precondition()
+    out, orig = {}, bmps._svd_k7
+
+    def take(M, vectors):
+        out.setdefault(tuple(M.shape[-2:]), []).append(M.clone())
+        return orig(M, vectors)
+
+    bmps._svd_k7 = take
+    try:
+        ins._context().build_boundary(Dmax, 1e-16, 1e-10, 20)
+    finally:
+        bmps._svd_k7 = orig
+    return out
+
+
+def svd_checks(tt, torch, floor):
+    """Phase 2, K7: the boundary's SVDs at Dmax 48 (chimera-2048) and 32
+    (chimera-512 s1), on matrices captured from the float32 builds: B1
+    the middle one of a shape, B8 the eight around it. S against a
+    float64 SVD to 32 sqrt(p) eps of S[0], U S Vh against M to as much
+    of ||M||, the svdvals entry's S likewise and equal to svd's, bit for
+    bit; the sweeps; the wrapper's and device times (CUDA graph),
+    torch.linalg.svd's (the library, which reads its info on the host)
+    and the bound (:func:`svd_ops` at the FP32 rate)."""
+    from tnax_torch import bmps, kernels
+    eps = torch.finfo(torch.float32).eps
+    mats = {48: boundary_matrices(tt, torch, INSTANCE, 16, 48),
+            32: boundary_matrices(tt, torch, FLEET[0] + ".txt", 8, 32)}
+    out = {}
+    for label, shape, whole, vectors in SVD_CASES:
+        got_all = mats[int(label[-2:])][shape]
+        mid = len(got_all) // 2
+        for bl, Ms in (("B1", got_all[mid:mid + 1]),
+                       ("B8", got_all[max(0, mid - 4):max(0, mid - 4) + 8])):
+            M = torch.cat(Ms)
+            B, p = M.shape[0], min(shape)
+            sweeps = torch.zeros(B, dtype=torch.int32, device=M.device)
+            U, S, Vh = kernels.svd.svd_fixed(M, sweeps=sweeps)
+            vals = kernels.svd.svdvals(M)
+            S64 = torch.linalg.svdvals(M.double())
+            s0 = S64[:, :1].clamp(min=1e-300)
+            ds = float(((S.double() - S64).abs() / s0).max())
+            dv = float(((vals.double() - S64).abs() / s0).max())
+            rec = float((torch.linalg.norm(
+                (U.double() * S.double()[:, None]) @ Vh.double()
+                - M.double(), dim=(1, 2))
+                / torch.linalg.norm(M.double(), dim=(1, 2)).clamp(
+                    min=1e-300)).max())
+            tol = 32 * p ** 0.5 * eps
+            check(ds <= tol and rec <= tol and dv <= tol
+                  and torch.equal(vals, S),
+                  f"K7 {label} {bl}: |dS|/S0 {ds:.3g}, |USVh - M|/|M| "
+                  f"{rec:.3g}, svdvals |dS|/S0 {dv:.3g} and equal to svd's "
+                  f"S: {torch.equal(vals, S)}, tol {tol:.3g}")
+            sw = sweeps.tolist()
+            ops = sum(svd_ops(p, max(shape), vectors, whole, k) for k in sw)
+            if vectors:
+                kern = lambda: kernels.svd.svd_fixed(M)
+                lib = lambda: torch.linalg.svd(M, full_matrices=False)
+                plain = lambda: bmps.svd_fixed_plain(M)
+            else:
+                kern = lambda: kernels.svd.svdvals(M)
+                lib = plain = lambda: torch.linalg.svdvals(M)
+            bms, by = bound(nbytes(M, U, Vh), ops, "float32")
+            r = dict(max_abs_err=float((S.double() - S64).abs().max()),
+                     max_rel_err_S=ds, rel_err_USVh=rec, sweeps=sw,
+                     ms=median_ms(kern, torch),
+                     device_ms=device_ms(kern, torch),
+                     plain_ms=median_ms(plain, torch),
+                     library_ms=median_ms(lib, torch), bound_ms=bms,
+                     bound_by=by, matrices=len(got_all))
+            out.setdefault("svd", {}).setdefault("float32", {})[
+                f"{label}_{bl}"] = r
+            print(f"kernel svd {label} {bl} {tuple(M.shape)}: sweeps {sw}  "
+                  f"wrapper {r['ms']:.4f} ms  device {r['device_ms']:.4f} "
+                  f"ms  plain {r['plain_ms']:.4f} ms  library "
+                  f"{r['library_ms']:.4f} ms  bound {bms:.6f} ms ({by})  "
+                  f"launch floor {floor:.4f} ms  |dS|/S0 {ds:.3g}  "
+                  f"|USVh - M|/|M| {rec:.3g}  ({len(got_all)} such "
+                  f"matrices a build)", flush=True)
+    out["svd"]["float32"]["B8"] = out["svd"]["float32"]["core48_B8"]
     return out
 
 
@@ -872,15 +992,18 @@ def fleet_phase(tt, torch):
                                            "f32 warm 2", "f32 warm 3"])):
         for label in labels:
             runs[label] = fleet_run(tt, torch, Js, oracles, dtype, label)
-            _, _, rs, Es, counts = runs[label]
+            _, stages, rs, Es, counts = runs[label]
             # pre_steps = 1; K6 and K5 run each float32 ladder row
             k56 = o["Ny"] if dtype == torch.float32 else 0
+            # K7 takes every float32 SVD of the D=48 boundary
             want = dict(gebal=2 * o["Nx"], merge=o["Nx"] * o["Ny"],
                         marginal_epilogue=o["Nx"] * o["Ny"], sample_site=0,
-                        polish=k56, zipup=k56)
-            check(counts == want, f"fleet {label}: launches {counts}, "
-                  f"want {want} (one per site, sweep step or ladder row "
-                  f"per batch)")
+                        polish=k56, zipup=k56,
+                        svd=k7_calls(stages))
+            check(counts == want and (counts["svd"] > 0) == (k56 > 0),
+                  f"fleet {label}: launches {counts}, want {want} (one per "
+                  f"site, sweep step or ladder row per batch; K7 once per "
+                  f"float32 boundary SVD the stage clock counted)")
             tol = 1e-9 if dtype == torch.float64 else 1e-3
             for r, E, orc in zip(rs, Es, oracles):
                 check(abs(r["energy"] - E) <= tol,
@@ -946,10 +1069,12 @@ def sample_run(tt, torch, Js, n, dtype, label, M, seed=0, uniforms=None):
     k56 = SAMPLE_KW["pre_steps"] * n if dtype == torch.float32 else 0
     want = dict(gebal=2 * SAMPLE_KW["pre_steps"] * n, merge=0,
                 marginal_epilogue=0, sample_site=n * n, polish=k56,
-                zipup=k56)
-    check(counts == want, f"sample {label}: launches {counts}, want {want} "
-          f"(K4 once per site, K1 once per interface sweep step, K6 and K5 "
-          f"once per float32 ladder row)")
+                zipup=k56, svd=k7_calls(stages))
+    check(counts == want and (counts["svd"] > 0) == (k56 > 0),
+          f"sample {label}: launches {counts}, want {want} (K4 once per "
+          f"site, K1 once per interface sweep step, K6 and K5 once per "
+          f"float32 ladder row, K7 once per float32 boundary SVD the "
+          f"stage clock counted)")
     for J, ins, r in zip(Js, solvers, rs):
         ins.states = r["states"][:, ins.order]
         E = tt.energy_Jij(J, ins.binary_states())
@@ -1427,7 +1552,7 @@ def solver_phase(tt, torch):
           f"device f32: K5 launches {counts['polish']}, K6 "
           f"{counts['zipup']}, want one each per ladder row (32)")
     solver.update({k: counts[k]
-                   for k in SEARCH_KERNELS + ("polish", "zipup")})
+                   for k in SEARCH_KERNELS + ("polish", "zipup", "svd")})
     ins_a = ins
 
     # (b) host search at full size, on (a)'s gauges; the wait of each
@@ -1461,7 +1586,7 @@ def solver_phase(tt, torch):
           f"solver 2048 host f32: launches {counts}, want K3 once per site "
           f"(256) and no K2")
     solver_host.update({k: counts[k]
-                        for k in SEARCH_KERNELS + ("polish", "zipup")})
+                        for k in SEARCH_KERNELS + ("polish", "zipup", "svd")})
 
     # (c) host search in float64 at full width against the device search
     # at the full expansion
@@ -1521,10 +1646,14 @@ def solver_phase(tt, torch):
             check(ins.energy.shape == (E02_M,) and err <= 1e-9,
                   f"solver e02 {dl} {path}: energies differ from their "
                   f"recheck by {err}")
+            f32 = dtype == torch.float32
             check(counts == dict(gebal=0, merge=0, marginal_epilogue=0,
-                                 sample_site=64, polish=0, zipup=0),
+                                 sample_site=64, polish=0, zipup=0,
+                                 svd=k7_calls(stages))
+                  and (counts["svd"] > 0) == f32,
                   f"solver e02 {dl} {path}: launches {counts}, want K4 once "
-                  f"per site")
+                  f"per site, K7 once per float32 boundary SVD the stage "
+                  f"clock counted")
             if dtype == torch.float64:
                 check(abs(mean - sorc["mean"]) <= tol,
                       f"solver e02 f64 {path}: mean {mean} more than {tol} "
@@ -1747,11 +1876,13 @@ def host_pre_phase(tt, torch):
           f"oracle's {orc['energy']} deg {orc['degeneracy']}")
     rows = stages.get("ud builds#rows", 0)
     check(counts == dict(gebal=0, merge=256, marginal_epilogue=256,
-                         sample_site=0, polish=2 * 16, zipup=2 * 16)
-          and counts["zipup"] == rows,
+                         sample_site=0, polish=2 * 16, zipup=2 * 16,
+                         svd=k7_calls(stages))
+          and counts["zipup"] == rows and counts["svd"] > 0,
           f"host pre 2048 ud: launches {counts}, rows built {rows}, want no "
-          f"K1 (host sweeps), K2/K3 once per site and K6 and K5 once per "
-          f"row of the two rungs' float32 D=8 stacks")
+          f"K1 (host sweeps), K2/K3 once per site, K6 and K5 once per "
+          f"row of the two rungs' float32 D=8 stacks and K7 once per SVD "
+          f"of the float32 boundary ({k7_calls(stages)} counted)")
 
     # (b) 'ud' then 'lr' on the host, then both searches
     ins = solver2048()
@@ -2202,7 +2333,8 @@ def main():
           f"{torch.cuda.get_device_name(0)} count "
           f"{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    names = ("gebal", "merge", "marginal", "sample", "polish", "zipup")
+    names = ("gebal", "merge", "marginal", "sample", "polish", "zipup",
+             "svd")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(build.load, names))
     for name in names:
@@ -2216,6 +2348,7 @@ def main():
     kres = kernel_checks(tt, torch, dev, floor)
     kres.update(polish_checks(tt, torch, floor))
     kres.update(zipup_checks(tt, torch, floor))
+    kres.update(svd_checks(tt, torch, floor))
 
     # phase 3: the slice through its entry points
     J = tt.round_Jij(tt.Jij_f2p(tt.load_Jij(INSTANCE)), 1 / 75)
@@ -2277,7 +2410,9 @@ def main():
            "polish": ("cuda", "tnax_torch/kernels/csrc/polish.cu",
                       "tnax/bmps.py:702"),
            "zipup": ("cuda", "tnax_torch/kernels/csrc/zipup.cu",
-                     "tnax/bmps.py:833")}
+                     "tnax/bmps.py:833"),
+           "svd": ("cuda", "tnax_torch/kernels/csrc/svd.cu",
+                   "none (tnax/bmps.py:217, jnp.linalg.svd by XLA)")}
     summary = []
     for name, (route, source, replaces) in src.items():
         r = kres[name]["float32"]["B8"]
@@ -2287,7 +2422,8 @@ def main():
                                       else fleet)[name],
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                            bound_by=r["bound_by"], library_ms=None,
+                            bound_by=r["bound_by"],
+                            library_ms=r.get("library_ms"),
                             device_ms=r["device_ms"], launch_floor_ms=floor,
                             **({"sort_ms": r["sort_ms"]} if "sort_ms" in r
                                else {}),

@@ -541,7 +541,7 @@ def test_host_sampler_runs_k4_per_site(cuda):
     assert kernels.launch_counts() == dict(gebal=0, merge=0,
                                            marginal_epilogue=0,
                                            sample_site=16, polish=0,
-                                           zipup=0)
+                                           zipup=0, svd=0)
     np.testing.assert_allclose(tt.energy_Jij(J, ins.binary_states()), E,
                                atol=1e-9)
 
@@ -1008,7 +1008,8 @@ def _check_zipup(row):
       another order of operations than cuSOLVER's;
     - the truncated zip-up A0 as a state (the MPS as a vector) to a
       fidelity of 1 - 1e-5: its site tensors are fixed only up to the
-      gauge of each bond, and K6's one-sided Jacobi and cuSOLVER's gesvdj
+      gauge of each bond, and K6's one-sided Jacobi and the plain steps'
+      SVDs (K7's on R^T of the core, a different order of rotations)
       rotate differently inside near-degenerate singular values, so the
       entries may differ where the state does not;
     - ``disc`` to 1e-4 relative or 1e-6 absolute, or its square to 128
@@ -1019,9 +1020,10 @@ def _check_zipup(row):
       ten here) and each rounded to some eps of itself, so disc^2 carries
       tens of eps (K6 read up to 38 against float64); where little is
       discarded, disc is that noise (1e-4 to 1e-3). The plain float32
-      steps on the card carry more of it (up to 425 eps in disc^2 on the
-      fleet's rows: cuSOLVER's batched Jacobi resolves the core's
-      singular values less finely), so they are no reference for it.
+      steps on the card carried more of it with cuSOLVER's SVDs (up to
+      425 eps in disc^2 on the fleet's rows: its batched Jacobi resolves
+      the core's singular values less finely), so they are no reference
+      for it.
     """
     args, tolS = _zipup_args(row)
     before = kernels.zipup_row.launches
@@ -1161,3 +1163,343 @@ def test_ladder_rows_run_k6_and_the_boundary_does_not(cuda):
                                stage_times=st)
     assert kernels.launch_counts()["zipup"] == 0
     assert not any(k.endswith("#zipup_k6") for k in st)
+
+
+# ---------------------------------------------------------------------------
+# K7: the boundary's SVDs
+# ---------------------------------------------------------------------------
+
+EPS32 = float(torch.finfo(torch.float32).eps)
+# the boundary's shapes at Dmax 48 (the zip-up's core, the truncation, the
+# polish) and at Dmax 32
+K7_SHAPES = [(128, 768), (96, 96), (48, 48), (96, 512), (64, 64), (32, 32)]
+
+
+def _k7_case(rng, B, m, n, case):
+    """B float32 matrices m x n: gaussian; rank-deficient (rank 7, with a
+    spectrum over six decades); or zero-padded, a random 5 x 11 corner
+    (the trivial bonds of the boundary's edge sites)."""
+    if case == "random":
+        M = rng.standard_normal((B, m, n))
+    elif case == "rank7":
+        M = (rng.standard_normal((B, m, 7)) * np.logspace(0, -6, 7)
+             @ rng.standard_normal((B, 7, n)))
+    else:
+        M = np.zeros((B, m, n))
+        M[:, :5, :11] = rng.standard_normal((B, 5, 11))
+    return torch.as_tensor(M, dtype=torch.float32, device="cuda")
+
+
+def _k7_faults(M, got, vals=None):
+    """K7's (U, S, Vh) of M (B, m, n) against torch.linalg.svd (cuSOLVER,
+    then svd_fixed's rule) and a float64 SVD, matrix by matrix; returns a
+    list of faults. Float32 tolerances, tol = 32 sqrt(p) eps:
+
+    - S to tol S[0] of the float64 values, as cuSOLVER's S;
+    - U S Vh to tol ||M||_F in the Frobenius norm;
+    - U's columns and Vh's rows where S > 0 orthonormal to tol; where
+      max(m, n) > 256 (K7's streamed path, whose V = X^T U / S is exact
+      to rounding only where S is not small beside S[0]) the side that is
+      V, U where m > n, to tol S[0]^2 / (S_i S_j) in entry ij; every
+      column where S = 0 zero on one side;
+    - svd_fixed's rule holds (no pair mostly negative on both sides), and
+      where S_j stands apart from its neighbours by more than 1e-3 S[0],
+      the pair (u_j, v_j) is the library's: u_j v_j^T alike, and the
+      same signs wherever the rule fixes them;
+    - the svdvals entry's S (``vals``) equal to the svd entry's, bit for
+      bit: the same rotations, without the accumulation."""
+    from tnax_torch import bmps
+    U, S, Vh = got
+    B, m, n = M.shape
+    p = min(m, n)
+    tol = 32 * p ** 0.5 * EPS32
+    Ul, Sl, Vhl = bmps.svd_fixed_plain(M)
+    S64 = torch.linalg.svdvals(M.double())
+    faults = []
+    if vals is not None and not torch.equal(vals, S):
+        faults.append("svdvals differs from svd's S")
+    for z in range(B):
+        s0 = float(S64[z, 0])
+        if s0 == 0.0:
+            if S[z].abs().max() > 0 or not torch.isfinite(U[z]).all():
+                faults.append(f"{z}: zero matrix, S {S[z, :3].tolist()}")
+            continue
+        ds = float((S[z].double() - S64[z]).abs().max()) / s0
+        dl = float((Sl[z].double() - S64[z]).abs().max()) / s0
+        rec = float(torch.linalg.norm(
+            (U[z].double() * S[z].double()) @ Vh[z].double()
+            - M[z].double()) / torch.linalg.norm(M[z].double()))
+        live = S[z] > 0
+        u, vh, s = U[z][:, live].double(), Vh[z][live].double(), \
+            S[z][live].double()
+        eye = torch.eye(len(s), dtype=u.dtype, device=u.device)
+        gu, gv = (u.T @ u - eye).abs(), (vh @ vh.T - eye).abs()
+        if max(m, n) > 256:
+            wt = s[:, None] * s[None, :] / s0 ** 2
+            gu, gv = (gu * wt, gv) if m > n else (gu, gv * wt)
+        ou = float(gu.max()) if gu.numel() else 0.0
+        ov = float(gv.max()) if gv.numel() else 0.0
+        dead = ~live
+        zero_side = bool(((U[z][:, dead] == 0).all(0)
+                          | (Vh[z][dead] == 0).all(1)).all())
+        bad = ((U[z].amin(0).abs() > U[z].amax(0))
+               & (Vh[z].amin(1).abs() > Vh[z].amax(1)))
+        ok = ds <= tol and rec <= tol and ou <= tol and ov <= tol \
+            and zero_side and not bool(bad.any())
+        # the library's pairs where S stands apart
+        Sd = S64[z].to(S.dtype)
+        gap = torch.minimum(
+            torch.cat([Sd[:1] * 0 + np.inf, Sd[:-1] - Sd[1:]]),
+            torch.cat([Sd[:-1] - Sd[1:], Sd[-1:]]))
+        for j in torch.nonzero(gap > 1e-3 * s0).flatten().tolist():
+            cu = float(U[z][:, j] @ Ul[z][:, j])
+            cv = float(Vh[z][j] @ Vhl[z][j])
+            fixed = bool((Ul[z][:, j].amin().abs() > Ul[z][:, j].amax())
+                         == (Vhl[z][j].amin().abs() > Vhl[z][j].amax()))
+            if abs(abs(cu) - 1) > 1e-3 or abs(abs(cv) - 1) > 1e-3 \
+                    or cu * cv < 0 or (fixed and cu < 0):
+                ok = False
+                faults.append(f"{z}: pair {j} u.u_lib {cu:.6f}, v.v_lib "
+                              f"{cv:.6f}, rule fixes the sign: {fixed}")
+                break
+        if not ok:
+            faults.append(f"{z}: |dS|/S0 {ds:.3g} (library {dl:.3g}), "
+                          f"|USVh - M|/|M| {rec:.3g}, U {ou:.3g}, Vh "
+                          f"{ov:.3g}, zero side {zero_side}, left to flip "
+                          f"{int(bad.sum())} (tol {tol:.3g})")
+    return faults
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "rank7", "padded"])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("shape", K7_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_svd_kernel_matches_the_library(cuda, shape, B, case):
+    """K7 at the boundary's shapes, and transposed, against
+    torch.linalg.svd (see :func:`_k7_faults` for the tolerances); one
+    launch a call, svd's and svdvals' alike; a matrix alone gives what it
+    gives in a batch, bit for bit."""
+    rng = np.random.default_rng(sum(shape) + B)
+    faults = []
+    for m, n in (shape, shape[::-1]):
+        M = _k7_case(rng, B, m, n, case)
+        assert kernels.svd.engages(M)
+        before = kernels.launch_counts()["svd"]
+        got = kernels.svd_fixed(M)
+        vals = kernels.svdvals(M)
+        assert kernels.launch_counts()["svd"] == before + 2
+        faults += [f"{m}x{n}: {f}" for f in _k7_faults(M, got, vals)]
+        alone = kernels.svd_fixed(M[-1:])
+        for a, b in zip(alone, got):
+            assert torch.equal(a[0], b[-1])
+    assert not faults, "\n".join(faults)
+
+
+@pytest.fixture(scope="module")
+def boundary_svds():
+    """Every matrix the chimera-128 boundary build at Dmax 48 hands to
+    K7 on the card in float32, each with the entry it took (svd or
+    svdvals): the zip-up's sketched cores, the truncation sweep's
+    matrices and the polish's triangular factors; their edge sites have
+    the trivial bonds zero-padded to 48."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import os
+    from tnax_torch import bmps
+    ins = _solver(os.path.join(os.path.dirname(__file__), "data",
+                               "chimera128_synth_s0.txt"), 4)
+    ins.precondition()
+    caught, orig = [], bmps._svd_k7
+
+    def take(M, vectors):
+        caught.append(("svd" if vectors else "vals", M.clone()))
+        return orig(M, vectors)
+
+    bmps._svd_k7 = take
+    try:
+        ins._context().build_boundary(48, 1e-16, 1e-10, 20)
+    finally:
+        bmps._svd_k7 = orig
+    return caught
+
+
+@pytest.mark.gpu
+def test_svd_kernel_on_the_boundary_matrices(boundary_svds):
+    """K7 on every captured matrix of a chimera-128 Dmax=48 boundary
+    build, one at a time and the polish's stacked eight at a time,
+    against torch.linalg.svd (:func:`_k7_faults`)."""
+    shapes = {tuple(M.shape[-2:]) for _, M in boundary_svds}
+    assert {(128, 768), (96, 96), (48, 48)} <= shapes
+    faults = []
+    for i, (kind, M) in enumerate(boundary_svds):
+        got = kernels.svd_fixed(M)
+        faults += [f"{kind} {i} {tuple(M.shape)}: {f}"
+                   for f in _k7_faults(M, got, kernels.svdvals(M))]
+    polish = torch.cat([M for kind, M in boundary_svds if kind == "vals"])
+    for k in range(0, len(polish) - 7, 8):
+        M = polish[k:k + 8]
+        faults += [f"polish batch {k}: {f}"
+                   for f in _k7_faults(M, kernels.svd_fixed(M),
+                                       kernels.svdvals(M))]
+    assert not faults, "\n".join(faults[:20])
+
+
+@pytest.mark.gpu
+def test_svd_kernel_resolves_a_core_s_small_kept_values(cuda):
+    """A zip-up core that chimera-2048's float32 ladder hands its SVD
+    (48 x 128, tests/data/chimera2048_synth_s0_ladder_core.npy): the 14th
+    to 16th of the 16 singular values the zip-up keeps lie at 8.3, 7.7
+    and 6.8 eps S[0], the 17th at 2.5, so the cut's gap is 4.2 eps S[0].
+    No pair is tied, and float32 resolves them (LAPACK's float32 SVD to
+    1.4 eps S[0]). K7 holds the first 17 to half the gap, so it orders
+    them at the cut as float64 does, and its top-16 left subspace misses
+    at most 1e-13 of the weight float64's keeps: a floor that zeroed them
+    missed 2e-12, and the plain zip-up steps of the row with it landed
+    1 - fidelity 5e-5 from float64."""
+    import os
+    path = os.path.join(os.path.dirname(__file__), "data",
+                        "chimera2048_synth_s0_ladder_core.npy")
+    M = torch.as_tensor(np.load(path), device=cuda)[None]
+    U, S, Vh = kernels.svd_fixed(M)
+    U64, S64, _ = torch.linalg.svd(M[0].double(), full_matrices=False)
+    s0, k = float(S64[0]), 16
+    gap = float(S64[k - 1] - S64[k])
+    assert 4 * EPS32 * s0 < gap < 5 * EPS32 * s0
+    ds = float((S[0, :k + 1].double() - S64[:k + 1]).abs().max())
+    P = U[0, :, :k].double()
+    A = U64[:, :k] * S64[:k]
+    miss = float(torch.linalg.norm(A - P @ (P.T @ A)) ** 2
+                 / (S64 ** 2).sum())
+    assert ds <= gap / 2, f"|dS| {ds / (EPS32 * s0):.3g} eps S[0]"
+    assert miss <= 1e-13, f"missed {miss:.3g} of the weight"
+    assert not _k7_faults(M, (U, S, Vh), kernels.svdvals(M))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", ["c128", "c2048", "c512x8"])
+def test_zipup_plain_steps_with_k7_match_float64(ladder_rows, label):
+    """The plain zip-up steps (``kernels.zipup_row_plain``) on the card in
+    float32, their SVDs in K7 (the 48 x 128 cores, the 16 x 16
+    truncations), on every captured ladder row: the truncated state
+    against the same steps in float64, lane by lane, to a fidelity of
+    1 - 1e-6. Where a row's cut falls near float32's resolution, any
+    float32 SVD moves the state: on these rows K7 read up to 3.1e-8,
+    the library's SVDs 1.3e-7 and K6 1.1e-7 against float64, and K7
+    with a negligible floor of 8 eps ||R||_F 5.1e-5 (chimera-2048's row
+    25, H100); K6 against the plain steps is held to 1 - 1e-5."""
+    faults = []
+    for i, row in enumerate(ladder_rows["zipup"][label]):
+        args, tolS = _zipup_args(row)
+        before = kernels.launch_counts()["svd"]
+        got = kernels.zipup_row_plain(*args, tolS=tolS)
+        assert kernels.launch_counts()["svd"] > before
+        want = kernels.zipup_row_plain(*(t.double() for t in args),
+                                       tolS=tolS)
+        off = 1 - _state_fidelity(got[2], want[2])
+        faults += [f"row {i} lane {z}: 1 - fidelity {float(v):.3g}"
+                   for z, v in enumerate(off) if not v <= 1e-6]
+    assert not faults, "\n".join(faults)
+
+
+@pytest.mark.gpu
+def test_svd_kernel_refuses_wrong_inputs(cuda):
+    """The wrappers raise on a dtype, shape or device K7 does not take,
+    never fall back, and count no launch; a matrix with a NaN gives NaN."""
+    good = torch.ones((2, 48, 48), device=cuda)
+    bad = [good.double(), good.half(), torch.ones((2, 129, 129),
+                                                  device=cuda),
+           torch.ones((1, 1, 4097), device=cuda),
+           torch.ones((0, 48, 48), device=cuda), torch.ones(48, device=cuda)]
+    before = kernels.launch_counts()["svd"]
+    for M in bad:
+        assert not kernels.svd.engages(M)
+        for fn in (kernels.svd_fixed, kernels.svdvals):
+            with pytest.raises(ValueError):
+                fn(M)
+    assert kernels.launch_counts()["svd"] == before
+    good[1, 3, 4] = float("nan")
+    U, S, Vh = kernels.svd_fixed(good)
+    assert torch.isfinite(S[0]).all() and torch.isnan(S[1]).all()
+
+
+def _k7_boundary_ctx():
+    import os
+    ins = _solver(os.path.join(os.path.dirname(__file__), "data",
+                               "chimera128_synth_s0.txt"), 4)
+    ins.precondition()
+    return ins._context()
+
+
+@pytest.mark.gpu
+def test_boundary_syncs_only_at_the_polish_stop(cuda):
+    """A recorded chimera-128 boundary build at Dmax 48 on the card waits
+    for the device only where the polish reads its stop (``_alternate``:
+    one read before a row's first pass and one after each): under CUDA
+    sync debugging each wait warns once, rows + passes in all. Every SVD
+    of it runs K7: ``#svd_k7`` is the build's SVD calls (2 L a row, the
+    zip-up's and the truncation's, and 2 L - 1 a pass) and K7's launches;
+    K5 and K6 do not launch."""
+    import warnings
+    from tnax_torch import config
+    ctx = _k7_boundary_ctx()
+    ctx.build_boundary(48, 1e-16, 1e-10, 20)      # builds K7, warms up
+    ctx._boundary_key = None
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with config.StageClock({}, cuda) as clock:
+                ctx.build_boundary(48, 1e-16, 1e-10, 20)
+                counters = dict(clock.counters)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "called a synchronizing" in str(w.message)]
+    rows, passes, L = counters["rows"], counters["passes"], 4
+    assert rows == 4 and passes >= rows
+    assert len(syncs) == rows + passes, [str(w.message) for w in syncs[:3]]
+    counts = kernels.launch_counts()
+    assert counters["svd_k7"] == counts["svd"] \
+        == rows * 2 * L + passes * (2 * L - 1)
+    assert counts["polish"] == counts["zipup"] == 0
+
+
+@pytest.mark.gpu
+def test_boundary_results_match_the_plain_path(cuda, monkeypatch):
+    """The ground-state energy and degeneracy of chimera-128, and of one
+    chimera-512 batch of 8, with K7 and with the plain path on the card
+    (``kernels.svd.engages`` patched to False); the boundary overlaps of
+    the chimera-128 build agree to 1e-4 of their size, which float32
+    rounding of the two SVDs moves."""
+    import os
+    from tnax_torch import parallel
+    from tnax_torch.kernels import svd as k7
+    data = os.path.join(os.path.dirname(__file__), "data")
+
+    def run():
+        ctx = _k7_boundary_ctx()
+        ctx.build_boundary(48, 1e-16, 1e-10, 20)
+        ins = _solver(os.path.join(data, "chimera128_synth_s0.txt"), 4)
+        E = ins.search_ground_state(M=1024, relative_P_cutoff=1e-8, Dmax=48,
+                                    path="device")
+        fleet = [_solver(os.path.join(data, f"chimera512_synth_s{s}.txt"), 8)
+                 for s in range(1, 9)]
+        res = parallel.multi_flagship_search_gs(
+            fleet, M=1024, relative_P_cutoff=1e-8, Dmax=48, cand_factor=8)
+        return (ctx.rhoT_overlap.double().cpu(), E[0], ins.degeneracy,
+                [(r["energy"], r["degeneracy"]) for r in res])
+
+    kernels.reset_launch_counts()
+    got = run()
+    assert kernels.launch_counts()["svd"] > 0
+    monkeypatch.setattr(k7, "engages", lambda M: False)
+    kernels.reset_launch_counts()
+    want = run()
+    assert kernels.launch_counts()["svd"] == 0
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0)
+    assert abs(got[1] - want[1]) <= 1e-3 and got[2] == want[2]
+    for (e1, d1), (e2, d2) in zip(got[3], want[3]):
+        assert abs(e1 - e2) <= 1e-3 and d1 == d2

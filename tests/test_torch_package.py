@@ -105,9 +105,12 @@ def test_wrappers_count_no_launch_on_cpu():
     A0 = kernels.zipup_row(z, torch.zeros(1, dtype=torch.float64), Wc,
                            omega, tolS=1e-12)[2]
     assert A0.shape == (1, 2, 8, 16, 8)
+    S = kernels.svd_fixed(torch.diag(torch.tensor([1.0, 3.0]))[None])[1]
+    assert S.tolist() == [[3.0, 1.0]]
     assert kernels.launch_counts() == dict(gebal=0, merge=0,
                                            marginal_epilogue=0,
-                                           sample_site=0, polish=0, zipup=0)
+                                           sample_site=0, polish=0, zipup=0,
+                                           svd=0)
 
 
 def _run_smoke(cwd):

@@ -13,7 +13,11 @@ condition holds keeps its state while the others sweep on, so every lane
 ends where its unbatched run would. At the balancing ladder's shapes a
 row's zip-up and truncation sweep run instead in one launch of kernel K6
 (``kernels.zipup``) and its polish in one launch of K5
-(``kernels.polish``), each lane to its own stop on the card.
+(``kernels.polish``), each lane to its own stop on the card. Elsewhere
+every SVD on the card in float32 (:func:`svd_fixed`, :func:`svdvals`: the
+zip-up's core, the truncation sweep, the polish's singular values) is one
+launch of K7 (``kernels.svd``) where its shape fits, so that a row reads
+the device only at the polish's stop.
 
 Two row absorptions: the zip-up (:func:`compress_apply`, the default of
 the boundary stacks) and the reference's fat path (:func:`apply_mpo`
@@ -43,6 +47,7 @@ import torch
 
 from . import config
 from .kernels import polish as _polish
+from .kernels import svd as _svd
 from .kernels import zipup as _zipup
 
 
@@ -109,11 +114,41 @@ def qr_fixed(M: torch.Tensor):
 
 def svd_fixed(M: torch.Tensor):
     """SVD with tnax's deterministic column-sign convention (batched over
-    leading dims)."""
+    leading dims). Float32 CUDA matrices in K7's envelope
+    (``kernels.svd.engages``) run K7, one launch and no host read;
+    everything else :func:`svd_fixed_plain`."""
+    if _svd.engages(M):
+        return _svd_k7(M, vectors=True)
+    return svd_fixed_plain(M)
+
+
+def svd_fixed_plain(M: torch.Tensor):
+    """:func:`svd_fixed` by ``torch.linalg.svd``, which on the card reads
+    cuSOLVER's info on the host."""
     U, S, Vh = torch.linalg.svd(M, full_matrices=False)
     flip = (U.amin(-2).abs() > U.amax(-2)) & (Vh.amin(-1).abs() > Vh.amax(-1))
     s = torch.where(flip, -1.0, 1.0).to(M.dtype)
     return U * s[..., None, :], S, Vh * s[..., :, None]
+
+
+def svdvals(M: torch.Tensor):
+    """The singular values of each matrix (batched over leading dims),
+    descending: K7 where :func:`svd_fixed` takes it, else
+    ``torch.linalg.svdvals``."""
+    if _svd.engages(M):
+        return _svd_k7(M, vectors=False)
+    return torch.linalg.svdvals(M)
+
+
+def _svd_k7(M, vectors):
+    """K7's SVD (or singular values) with the stage clock's counter: a
+    recording clock counts the call (``svd_k7``); nothing waits either
+    way."""
+    out = _svd.svd_fixed(M) if vectors else _svd.svdvals(M)
+    rec = config.recording()
+    if rec is not None:
+        rec.count("svd_k7", 1)
+    return out
 
 
 def _keep_mask(S, cap, tol):
@@ -393,7 +428,7 @@ def variational_compress(mps: MPS, phi: torch.Tensor, *, tol: float,
             Bn = _project(RLs[n], phi[:, n], RR)
             Q, R = qr_fixed(Bn.reshape(B, D, d * D).transpose(1, 2))
             A[n] = Q.transpose(1, 2).reshape(B, D, d, D)
-            sv = torch.linalg.svdvals(R.transpose(1, 2))
+            sv = svdvals(R.transpose(1, 2))
             S[n] = sv / torch.clamp(sv[:, :1], min=tiny)
             RR, _ = _rescale(_mix_right(RR, phi[:, n], A[n]), zero)
             RRs[n - 1] = RR
@@ -407,7 +442,7 @@ def variational_compress(mps: MPS, phi: torch.Tensor, *, tol: float,
             Bn = _project(RL, phi[:, n], RRs[n])
             Q, R = qr_fixed(Bn.reshape(B, D * d, D))
             A[n] = Q.reshape(B, D, d, D)
-            sv = torch.linalg.svdvals(R)
+            sv = svdvals(R)
             sv = sv / torch.clamp(sv[:, :1], min=tiny)
             diff = torch.maximum(diff, torch.sqrt(torch.sum(
                 (S[n + 1] - sv) ** 2, dim=1)))
@@ -693,7 +728,7 @@ def variational_implicit_plain(A0, phi_A, Wc, *, tol: float,
             Bn = project(FLs[n], phi_A[:, n], Wc[:, n], FR)
             Q, R = qr_fixed(Bn.reshape(B, Dn, du * Dn).transpose(1, 2))
             A[n] = Q.transpose(1, 2).reshape(B, Dn, du, Dn)
-            sv = torch.linalg.svdvals(R.transpose(1, 2))
+            sv = svdvals(R.transpose(1, 2))
             S[n] = sv / torch.clamp(sv[:, :1], min=tiny)
             FR, _ = _rescale(upd_right(FR, phi_A[:, n], Wc[:, n], A[n]),
                              zero)
@@ -708,7 +743,7 @@ def variational_implicit_plain(A0, phi_A, Wc, *, tol: float,
             Bn = project(FL, phi_A[:, n], Wc[:, n], FRs[n])
             Q, R = qr_fixed(Bn.reshape(B, Dn * du, Dn))
             A[n] = Q.reshape(B, Dn, du, Dn)
-            sv = torch.linalg.svdvals(R)
+            sv = svdvals(R)
             sv = sv / torch.clamp(sv[:, :1], min=tiny)
             diff = torch.maximum(diff, torch.sqrt(torch.sum(
                 (S[n + 1] - sv) ** 2, dim=1)))

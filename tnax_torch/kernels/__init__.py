@@ -7,6 +7,7 @@ K3     ``marginal.marginal_epilogue``       CUDA C++ (csrc/marginal.cu)
 K4     ``sample.sample_site``               CUDA C++ (csrc/sample.cu)
 K5     ``polish.polish_row``                CUDA C++ (csrc/polish.cu)
 K6     ``zipup.zipup_row``                  CUDA C++ (csrc/zipup.cu)
+K7     ``svd.svd_fixed``, ``svd.svdvals``   CUDA C++ (csrc/svd.cu)
 =====  ===================================  ==========================
 
 K3 and K4 share the marginal epilogue, ``csrc/epilogue.cuh``. Each
@@ -20,12 +21,13 @@ from .marginal import marginal_epilogue, marginal_epilogue_plain
 from .merge import merge_segments, merge_segments_plain
 from .polish import polish_row, polish_row_plain
 from .sample import sample_draw_plain, sample_site, sample_site_plain
+from .svd import svd_fixed, svd_fixed_plain, svdvals, svdvals_plain
 from .zipup import zipup_row, zipup_row_plain
 
 WRAPPERS = {"gebal": gebal_scale, "merge": merge_segments,
             "marginal_epilogue": marginal_epilogue,
             "sample_site": sample_site, "polish": polish_row,
-            "zipup": zipup_row}
+            "zipup": zipup_row, "svd": svd_fixed}
 
 
 def reset_launch_counts() -> None:
@@ -41,6 +43,7 @@ __all__ = ["gebal_scale", "gebal_scale_plain", "marginal_epilogue",
            "marginal_epilogue_plain", "merge_segments",
            "merge_segments_plain", "polish_row", "polish_row_plain",
            "sample_draw_plain", "sample_site",
-           "sample_site_plain", "zipup_row", "zipup_row_plain", "WRAPPERS",
+           "sample_site_plain", "svd_fixed", "svd_fixed_plain", "svdvals",
+           "svdvals_plain", "zipup_row", "zipup_row_plain", "WRAPPERS",
            "reset_launch_counts",
            "launch_counts"]

@@ -46,6 +46,8 @@
 #include <cmath>
 #include <cstdint>
 
+#include "jacobi.cuh"
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -566,38 +568,13 @@ __device__ void gemm_gtq(const float* G, const float* Q, float* Z, int t) {
 constexpr float JTOL48 = 11.3137085f * FLT_EPSILON;  // Bm^T: 128 rows
 constexpr float JTOL16 = 4.f * FLT_EPSILON;          // Craw: 16 rows
 
-// one-sided Jacobi rotation of the column pair (p, q) whose sums of
-// squares and inner product are al, be, ga: (cs, sn), false when the pair
-// is already orthogonal to the columns' float32 precision, |ga| at most
-// tol sqrt(al be) with tol = sqrt(rows) eps (LAPACK's sgesvj: rounding
-// keeps inner products of converged columns above eps alone, and the
-// sweeps would not end), or a column's square norm is at most floor2. A
-// column that small (8 eps of the matrix's norm) is
-// rounding noise of a rank-deficient matrix: its rows lie in the span of
-// the others, so rotations would only trade one residual of a few eps
-// for another and never converge (LAPACK's sgesvj also treats such
-// columns as zero); it stays below the keep rule's floor of eps times the
-// largest singular value
-__device__ __forceinline__ bool rotation(float al, float be, float ga,
-                                         float tol, float floor2, float& cs,
-                                         float& sn) {
-  if (al <= floor2 || be <= floor2 ||
-      !(fabsf(ga) > tol * sqrtf(al) * sqrtf(be)))
-    return false;
-  const float zeta = (be - al) / (2.f * ga);
-  const float tn =
-      copysignf(1.f, zeta) / (fabsf(zeta) + sqrtf(fmaf(zeta, zeta, 1.f)));
-  cs = 1.f / sqrtf(fmaf(tn, tn, 1.f));
-  sn = cs * tn;
-  return true;
-}
-
 // One-sided Jacobi (Hestenes) on the NC columns of X (16 RPL rows,
 // column stride xs), the rotations accumulated in V (NC x NC, column
 // stride vs, from the identity): a round's NC / 2 disjoint round-robin
 // pairs go to as many half warps (rows i + 16 e to lane i), one barrier a
 // round; sweeps until one rotates nothing, at most 30; columns below 8 eps
-// of X's norm are not rotated (see rotation). Then X V has orthogonal
+// of X's norm are not rotated (jacobi_rotation, csrc/jacobi.cuh) and keep
+// their norms as their singular values. Then X V has orthogonal
 // columns, and X = (X V) V^T. X must be in place when it is called.
 template <int NC, int RPL>
 __device__ void jacobi(float* X, int xs, float* V, int vs, float tol,
@@ -632,8 +609,8 @@ __device__ void jacobi(float* X, int xs, float* V, int vs, float tol,
         al = half_sum(al);
         be = half_sum(be);
         ga = half_sum(ga);
-        float cs, sn;
-        if (rotation(al, be, ga, tol, floor2, cs, sn)) {
+        float cs, sn, tn;
+        if (jacobi_rotation(al, be, ga, tol, floor2, cs, sn, tn)) {
 #pragma unroll
           for (int e = 0; e < RPL; ++e) {
             bp[i + 16 * e] = cs * xp[e] - sn * xq[e];
